@@ -1,6 +1,6 @@
 // tiray_native: host-side native runtime for ti_raytrace_tpu.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library covers the
+// The render compute path is JAX/XLA/Pallas; this library covers the
 // host-side ingest work the reference delegated to native pip packages
 // (pywavefront / cv2, SURVEY.md §2.9): a fast Wavefront OBJ/MTL parser
 // that produces per-material triangle soup, plus a morton-code kernel

@@ -1,6 +1,6 @@
-"""Per-scene performance table (VERDICT r4 #5): one measured ms/frame +
-fps line for every example at 512^2 on the real TPU, written into
-docs/PERF.md between the PERF_TABLE markers.
+"""Per-scene performance table: one measured ms/frame + fps line for
+every example at 512^2 on the GPU, printed as a markdown block stamped
+with the card's name and power limit.
 
 One process, scenes sequential; per scene the first dispatch (compile +
 first frames) is reported separately from the steady-state median.
@@ -8,7 +8,7 @@ Progressive 1 spp frames throughout.  Spectral PT runs the KF
 multi-frame dispatch (render_film_frames_spec); the 100k benchmark runs
 the production merged path (same config as bench.py).
 
-    JAX_PLATFORMS=tpu python scripts/perf_table.py [--quick]
+    python scripts/perf_table.py [--quick] [--scenes NAME ...]
 """
 
 import argparse
@@ -16,23 +16,18 @@ import os
 import sys
 import time
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ti_raytrace_tpu.core.tpu_env import fix_stale_platform, wait_for_device
+from ti_raytrace_tpu.core.runtime import (  # noqa: E402
+    card_name_and_power,
+    require_gpu,
+    setup_compile_cache,
+)
 
-fix_stale_platform()
+setup_compile_cache()
+require_gpu()
 
-import jax
-
-wait_for_device()
-
-try:
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join("/root/repo", ".cache", "jax"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:
-    pass
-
+import jax  # noqa: E402
 import numpy as np
 
 from ti_raytrace_tpu import film as film_mod
@@ -44,8 +39,6 @@ from ti_raytrace_tpu.examples.scenes import (
 )
 
 SIZE = 512
-MARK_A = "<!-- PERF_TABLE (scripts/perf_table.py) -->"
-MARK_B = "<!-- /PERF_TABLE -->"
 
 
 def log(*a):
@@ -175,28 +168,16 @@ def main():
             f"{fps:7.2f} fps  (compile+first {compile_s:.1f}s)")
 
     stamp = time.strftime("%Y-%m-%d")
-    lines = [MARK_A,
-             f"Measured {stamp} on one TPU v5e (512x512, progressive 1 spp",
-             "frames, steady-state median dispatch; compile+first-dispatch",
-             "listed separately).  Producing script: `scripts/perf_table.py`.",
+    lines = [f"Measured {stamp} on {card_name_and_power()} (512x512, "
+             "progressive 1 spp frames, steady-state median dispatch; "
+             "compile+first-dispatch listed separately).  Producing script: "
+             "`scripts/perf_table.py`.",
              "",
              "| scene | integrator | ms/frame | fps | compile+first (s) |",
              "|---|---|---|---|---|"]
     for name, integ, ms, fps, comp in rows:
-        lines.append(f"| {name} | {integ} | {ms:.1f} | {fps:.2f} | {comp:.1f} |")
-    lines.append(MARK_B)
-    block = "\n".join(lines)
-
-    perf_md = os.path.join("/root/repo", "docs", "PERF.md")
-    text = open(perf_md).read()
-    if MARK_A in text:
-        pre = text.split(MARK_A)[0]
-        post = text.split(MARK_B)[1]
-        text = pre + block + post
-    else:
-        text = text.rstrip() + "\n\n## Per-scene frame rates\n\n" + block + "\n"
-    open(perf_md, "w").write(text)
-    print(block)
+        lines.append(f"| {name} | {integ} | {ms:.3f} | {fps:.3f} | {comp:.1f} |")
+    print("\n".join(lines))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,22 @@
-"""Profile the 100k benchmark frame: where does the time go?"""
+"""Profile the 100k benchmark frame on the GPU: where does the time go?
 
+    python scripts/profile_bench.py [--trace DIR]
+
+Times, on camera rays and on twice-bounced (incoherent) rays at 512^2:
+the coherence sort + per-block cluster order, the cluster kernel alone,
+one full bounce, and one compacted frame.  With --trace, also writes a
+jax.profiler trace of one frame to DIR (read it with scripts/xplane.py).
+Every line is stamped with the card's name and power limit.
+"""
+
+import argparse
+import os
 import sys
 import time
 
 import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def log(*a):
@@ -21,94 +34,82 @@ def timeit(fn, n=5):
 
 
 def main():
-    from ti_raytrace_tpu.core.tpu_env import fix_stale_platform, wait_for_device
-    fix_stale_platform()
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args()
 
+    from ti_raytrace_tpu.core.runtime import (card_name_and_power,
+                                              require_gpu, setup_compile_cache)
+
+    setup_compile_cache()
+    require_gpu()
     import jax
-
-    wait_for_device()
     import jax.numpy as jnp
 
-    from ti_raytrace_tpu.camera import CameraSpec, orbit_camera, ray_directions, ray_origins
+    from ti_raytrace_tpu.camera import ray_directions, ray_origins
     from ti_raytrace_tpu.examples.scenes import benchmark_100k
     from ti_raytrace_tpu.integrators import pt_rgb
     from ti_raytrace_tpu.ops import cluster_trace as ct
-    from ti_raytrace_tpu.ops.cluster_trace import TILE
 
-    log("device:", jax.devices()[0])
+    import bench
+
+    log(f"device: {jax.devices()[0].device_kind} ({card_name_and_power()})")
     t0 = time.time()
     scene, _ = benchmark_100k()
     log(f"scene build {time.time()-t0:.1f}s prims={scene.n_prims} "
         f"clusters={scene.cluster_bounds.shape[1]}")
-
-    size = 512
-    lo = np.asarray(scene.aabb_min); hi = np.asarray(scene.aabb_max)
-    centre = 0.5 * (lo + hi)
-    scale = float(np.linalg.norm(hi - lo)) * 0.8
-    spec = CameraSpec(size, size)
-    cam = orbit_camera(centre, 0.0, 0.0, scale)
+    scene, spec, cam, nee = bench.setup(512)
     key = jax.random.PRNGKey(0)
-
     o = jnp.swapaxes(ray_origins(spec, cam), 0, 1)
     d = jnp.swapaxes(ray_directions(spec, cam, jnp.int32(1), key), 0, 1)
     N = o.shape[1]
-    n_pad = ((N + TILE - 1) // TILE) * TILE
-    cb = scene.cluster_bounds; tri = scene.cluster_tri
-    n_clusters = int(cb.shape[1]); block = int(tri.shape[1]) // n_clusters
 
     @jax.jit
     def prep(o, d):
-        rays = jnp.zeros((n_pad, 8), jnp.float32)
-        rays = rays.at[:N, 0:3].set(jnp.swapaxes(o, 0, 1))
-        rays = rays.at[:N, 3:6].set(jnp.swapaxes(d, 0, 1))
         ko, kd = ct._coherence_key(scene, o, d)
-        ko = jnp.pad(ko, (0, n_pad - N), constant_values=jnp.uint32(0xFFFFFFFF))
-        kd = jnp.pad(kd, (0, n_pad - N), constant_values=jnp.uint32(0xFFFFFFFF))
-        idx = jnp.arange(n_pad, dtype=jnp.int32)
-        _, _, order = jax.lax.sort((ko, kd, idx), num_keys=2, is_stable=True)
-        rays_s = jnp.take(rays, order, axis=0)
-        order_t, cb_sorted, sb_sorted = ct._tile_order(rays_s, n_pad // TILE, cb, n_clusters)
-        return rays_s, order_t, cb_sorted, sb_sorted
+        _, _, order = jax.lax.sort((ko, kd, jnp.arange(N, dtype=jnp.int32)),
+                                   num_keys=2, is_stable=True)
+        rays = jnp.concatenate([o, d, jnp.zeros((2, N), jnp.float32)], 0)
+        rays = jnp.take(rays, order, axis=1)
+        sb = ct._super_bounds(scene.cluster_bounds)
+        cent = rays[0:3].reshape(3, N // ct.TILE, ct.TILE).mean(axis=2).T
+        return rays, ct._front_to_back(sb, cent), sb
 
-    def kern(rays_s, order_t, cb_sorted, sb_sorted):
-        return ct._run_kernel(rays_s, cb_sorted, sb_sorted, order_t, tri,
-                              scene.cluster_attr, n_clusters, block, True, False)
+    block = scene.cluster_tri.shape[1] // scene.cluster_bounds.shape[1]
 
-    rays_s, order_t, cb_sorted, sb_sorted = jax.block_until_ready(prep(o, d))
-    dt = timeit(lambda: jax.block_until_ready(prep(o, d)))
-    log(f"prep (sort + tile_order): {dt*1e3:.2f} ms")
-    out = jax.block_until_ready(kern(rays_s, order_t, cb_sorted, sb_sorted))
-    vis = np.asarray(out[::TILE, ct.VISITED_COL])
-    log(f"PRIMARY visited/tile (of {n_clusters}): mean={vis.mean():.1f} "
-        f"p50={np.percentile(vis,50):.0f} p90={np.percentile(vis,90):.0f} max={vis.max():.0f}")
-    dt = timeit(lambda: jax.block_until_ready(kern(rays_s, order_t, cb_sorted, sb_sorted)))
-    log(f"kernel only (want_attr): {dt*1e3:.2f} ms")
+    def kern(rays, order, sb):
+        return ct._run_kernel(rays, order, sb, scene.cluster_bounds,
+                              scene.cluster_tri, block, False)
 
-    # bounce twice, then re-measure with incoherent rays (same shapes -> no recompile)
-    nee = pt_rgb.has_nee_materials(scene)
+    for label, (oo, dd) in (("camera", (o, d)),):
+        rays, order, sb = jax.block_until_ready(prep(oo, dd))
+        dt = timeit(lambda: jax.block_until_ready(prep(oo, dd)))
+        log(f"{label}: sort + per-block order {dt*1e3:.3f} ms")
+        dt = timeit(lambda: jax.block_until_ready(kern(rays, order, sb)))
+        log(f"{label}: kernel only {dt*1e3:.3f} ms ({N} rays)")
+
     bounce = jax.jit(lambda c, k: pt_rgb._bounce(scene, c, k, nee, True))
     carry0 = pt_rgb._new_carry(o, d)
     dt = timeit(lambda: jax.block_until_ready(bounce(carry0, key)), n=3)
-    log(f"full bounce {N} (nee={nee}): {dt*1e3:.2f} ms")
+    log(f"full bounce {N} (nee={nee}): {dt*1e3:.3f} ms")
     c1 = jax.block_until_ready(bounce(carry0, key))
     c2 = jax.block_until_ready(bounce(c1, jax.random.fold_in(key, 1)))
     log(f"occupancy b1={float(np.asarray(c1['alive']).mean()):.3f} "
         f"b2={float(np.asarray(c2['alive']).mean()):.3f}")
-    rays_s2, order_t2, cb2, sb2 = jax.block_until_ready(prep(c2["origin"], c2["direction"]))
-    out2 = jax.block_until_ready(kern(rays_s2, order_t2, cb2, sb2))
-    vis2 = np.asarray(out2[::TILE, ct.VISITED_COL])
-    log(f"BOUNCED visited/tile: mean={vis2.mean():.1f} "
-        f"p50={np.percentile(vis2,50):.0f} p90={np.percentile(vis2,90):.0f} max={vis2.max():.0f}")
-    dt = timeit(lambda: jax.block_until_ready(kern(rays_s2, order_t2, cb2, sb2)))
-    log(f"kernel only bounced full-width: {dt*1e3:.2f} ms")
+    rays, order, sb = jax.block_until_ready(prep(c2["origin"], c2["direction"]))
+    dt = timeit(lambda: jax.block_until_ready(kern(rays, order, sb)))
+    log(f"bounced: kernel only, full width {dt*1e3:.3f} ms")
 
-    # full frame
-    compaction = ((2, 4), (5, 16))
-    fr = jax.jit(lambda k: pt_rgb.render_frame(scene, spec, cam, jnp.int32(1), k,
-                                               compaction, nee))
+    from ti_raytrace_tpu.examples.scenes import BENCH_SCHEDULE
+
+    fr = jax.jit(lambda k: pt_rgb.render_frame(scene, spec, cam, jnp.int32(1),
+                                               k, BENCH_SCHEDULE, nee))
     dt = timeit(lambda: fr(key).block_until_ready(), n=3)
-    log(f"render_frame (compaction {compaction}): {dt*1e3:.2f} ms "
-        f"-> {1.0/dt:.2f} fps")
+    log(f"render_frame (compaction {BENCH_SCHEDULE}): {dt*1e3:.3f} ms")
+    if args.trace:
+        with jax.profiler.trace(args.trace):
+            fr(key).block_until_ready()
+        log(f"trace written to {args.trace}")
 
 
 if __name__ == "__main__":

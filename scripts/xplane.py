@@ -2,9 +2,10 @@
 
 Parses the protobuf wire format directly with the XSpace/XPlane/XLine/
 XEvent field numbers from tensorflow/core/profiler/protobuf/xplane.proto
-and aggregates device-side event durations by op name.
+and aggregates device-side event durations by op name over the GPU
+device planes ("/device:GPU:<n>").
 
-    python scripts/xplane.py /tmp/jaxtrace [top_n]
+    python scripts/xplane.py TRACE_DIR [top_n]
 """
 
 import glob
@@ -114,7 +115,7 @@ def load_dir(path):
     return spaces
 
 
-def device_op_totals(path, plane_filter=("TPU", "/device")):
+def device_op_totals(path, plane_filter=("/device:GPU",)):
     """Aggregate event durations (ms) by op name over device planes.
     Returns (totals dict, plane names seen)."""
     totals = defaultdict(float)
@@ -134,7 +135,7 @@ def device_op_totals(path, plane_filter=("TPU", "/device")):
 
 
 def main():
-    path = sys.argv[1] if len(sys.argv) > 1 else "/tmp/jaxtrace"
+    path = sys.argv[1]
     top = int(sys.argv[2]) if len(sys.argv) > 2 else 30
     totals, counts, seen = device_op_totals(path)
     if not totals:

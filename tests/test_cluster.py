@@ -2,11 +2,12 @@
 
 The production tracer for large scenes (ops/cluster_trace.py) must agree
 exactly with accel/traverse.trace_closest: hit distance, winning
-primitive, and the fused one-hot attribute extraction must equal the
-prim_attr column of that primitive.  Runs on a small scene so pallas
-interpret mode stays fast; both wavefront regimes are covered (the
-small-wavefront static-order path and the sorted per-tile-order path
-share every kernel line except the ordering inputs).
+primitive, and the attribute record must equal the prim_attr column of
+that primitive bit for bit.  Runs on a small scene so Pallas interpret
+mode stays fast; both wavefront regimes are covered (the small-wavefront
+static-order path and the sorted per-block-order path share every
+kernel line except the ordering inputs).  The compiled kernel is checked
+against the same oracle on the card by chip_smoke.py (phase 2).
 """
 
 import numpy as np
@@ -82,16 +83,16 @@ def test_cluster_matches_bvh_oracle(sphere_scene):
     # misses agree too
     assert (prim[~hit] == p_ref[~hit]).all()
 
-    # fused attr extraction == the winner's prim_attr column, exactly
+    # attribute record == the winner's prim_attr column, bit for bit
     attr = np.asarray(attr)
     pa = np.asarray(scene.prim_attr)
     exp = pa[:, np.clip(prim, 0, scene.n_prims - 1)]
     exp = np.where((prim >= 0)[None, :], exp, 0.0)
-    np.testing.assert_allclose(attr, exp, atol=1e-6)
+    np.testing.assert_array_equal(attr, exp)
 
 
 def test_cluster_sorted_path_matches(sphere_scene, monkeypatch):
-    """The big-wavefront regime (morton sort + per-tile front-to-back
+    """The big-wavefront regime (morton sort + per-block front-to-back
     order + unsort) must agree with the static-order result."""
     from ti_raytrace_tpu.ops import cluster_trace as ct
 
@@ -106,12 +107,10 @@ def test_cluster_sorted_path_matches(sphere_scene, monkeypatch):
     assert (np.asarray(prim_small) == np.asarray(prim_sorted)).all()
 
 
-def test_cluster_origin_mt_matches(sphere_scene, monkeypatch):
-    """The shared-origin precomputed-MT narrow phase (ORIGIN_MT, used
-    for camera wavefronts) must reproduce the generic path's hits within
-    f32-reformulation tolerance — same contract as MT_MXU."""
-    from ti_raytrace_tpu.ops import cluster_trace as ct
-
+def test_cluster_origin_mt_matches(sphere_scene):
+    """The shared-origin path (camera wavefronts: shared_origin selects
+    one front-to-back cluster order for every ray block) must reproduce
+    the static-order path's hits."""
     scene = sphere_scene
     o, d = _rays(scene, 128, seed=11)
     o = jnp.broadcast_to(o[:, :1], o.shape)  # one pinhole origin
@@ -123,10 +122,7 @@ def test_cluster_origin_mt_matches(sphere_scene, monkeypatch):
     tgt = c[:, None] + rng.normal(size=(3, 128)) * (hi - lo)[:, None] * 0.3
     d = jnp.asarray(tgt, jnp.float32) - o
     d = d / jnp.linalg.norm(d, axis=0, keepdims=True)
-    monkeypatch.setattr(ct, "ORIGIN_MT", False)
-    t0, prim0, _ = trace_clustered(scene, o, d, interpret=True,
-                                   shared_origin=o[:, 0])
-    monkeypatch.setattr(ct, "ORIGIN_MT", True)
+    t0, prim0, _ = trace_clustered(scene, o, d, interpret=True)
     t1, prim1, _ = trace_clustered(scene, o, d, interpret=True,
                                    shared_origin=o[:, 0])
     t0, t1, prim0, prim1 = map(np.asarray, (t0, t1, prim0, prim1))
@@ -138,34 +134,6 @@ def test_cluster_origin_mt_matches(sphere_scene, monkeypatch):
     assert (hit == (t1 < 1e5)).all()
     mismatch = hit & (prim0 != prim1)
     assert mismatch.mean() < 0.02
-
-
-@pytest.mark.parametrize("flag", ["MT_MXU", "BF16_SLAB"])
-def test_cluster_flag_variants_match(sphere_scene, monkeypatch, flag):
-    """The alternate kernel paths kept behind flags (matmul-form narrow
-    phase; bf16 broad phase with conservative margins) must reproduce
-    the default path's hits: MT_MXU within f32-reformulation tolerance,
-    BF16_SLAB bit-identically (its candidate set is a superset and the
-    narrow phase is unchanged)."""
-    from ti_raytrace_tpu.ops import cluster_trace as ct
-
-    scene = sphere_scene
-    o, d = _rays(scene, 128, seed=7)
-    t0, prim0, _ = trace_clustered(scene, o, d, interpret=True)
-    monkeypatch.setattr(ct, flag, True)
-    t1, prim1, _ = trace_clustered(scene, o, d, interpret=True)
-    t0, t1, prim0, prim1 = map(np.asarray, (t0, t1, prim0, prim1))
-    hit = t0 < 1e5
-    if flag == "BF16_SLAB":
-        np.testing.assert_array_equal(t0, t1)
-        np.testing.assert_array_equal(prim0, prim1)
-    else:
-        np.testing.assert_allclose(np.where(hit, t0, 0.0),
-                                   np.where(hit, t1, 0.0),
-                                   rtol=1e-4, atol=1e-4)
-        assert (hit == (t1 < 1e5)).all()
-        mismatch = hit & (prim0 != prim1)
-        assert mismatch.mean() < 0.02
 
 
 def test_cluster_tmax_bound(sphere_scene):
@@ -253,12 +221,9 @@ def test_cluster_active_capacity(sphere_scene):
 
 @pytest.fixture(scope="module")
 def three_chunk_scene():
-    """~40k-tri scene padding to EXACTLY 3 cluster-chunks (384 clusters).
-
-    Regression scaffold for the refresh-clamp bug: refresh clamped to
-    min(REFRESH, n_chunks) could yield 3, which does not divide
-    CHUNK // GROUP (4); the group loop then floored to one iteration and
-    clusters 96-127 of every chunk were never intersection-tested."""
+    """~40k-tri scene whose cluster count (1,250) is not a whole number of
+    superclusters: the last supercluster is part padding clusters, which
+    must never produce hits or hide real ones."""
     from ti_raytrace_tpu.io.meshgen import split2
     from ti_raytrace_tpu.io.obj import load_obj
 
@@ -283,16 +248,17 @@ def three_chunk_scene():
 
 
 def test_cluster_three_chunk_oracle(three_chunk_scene):
-    """Every chunk's full 128 clusters must be swept when the refresh
-    period is clamped on a 3-chunk scene (ADVICE r4 high: refresh=3
-    silently dropped clusters 96-127 of each chunk)."""
-    from ti_raytrace_tpu.ops import cluster_trace as ct
+    """Every real cluster of a scene with a part-padding last
+    supercluster is swept: all oracle hits are found, at the oracle's
+    distance."""
+    from ti_raytrace_tpu.accel.clusters import GROUP
 
     scene = three_chunk_scene
-    n_clusters = scene.cluster_bounds.shape[1]
-    assert n_clusters // ct.CHUNK == 3, (
-        f"fixture must pad to exactly 3 chunks, got {n_clusters} clusters"
-    )
+    valid = np.asarray(scene.cluster_bounds[6])
+    n_clusters = valid.shape[0]
+    assert n_clusters % GROUP == 0
+    assert 0 < n_clusters - int(valid.sum()) < GROUP, (
+        "fixture must end in a part-padding supercluster")
     o, d = _rays(scene, 192, seed=21)
     t, prim, _ = trace_clustered(scene, o, d, interpret=True)
     t_ref, p_ref = trace_closest(
@@ -302,7 +268,7 @@ def test_cluster_three_chunk_oracle(three_chunk_scene):
     t_ref, p_ref = np.asarray(t_ref), np.asarray(p_ref)
     hit = t_ref < 1e5
     assert hit.sum() > 30
-    # every oracle hit must be found (the bug reported hits as misses)
+    # every oracle hit must be found, and nothing else
     assert ((t < 1e5) == hit).all()
     np.testing.assert_allclose(
         np.where(hit, t, 0.0), np.where(hit, t_ref, 0.0),
@@ -315,19 +281,60 @@ def test_cluster_three_chunk_oracle(three_chunk_scene):
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_attr_split3_exact(sphere_scene):
-    """The bf16x3 decomposition must reproduce the f32 attr table bit for
-    bit — the ATTR_SPLIT3 kernel path's exactness precondition.  The
-    scene-resident table is a placeholder while ATTR_SPLIT3 is off
-    (measured loss; no HBM spent on the disabled path), so the
-    decomposition is exercised directly."""
-    from ti_raytrace_tpu.scene.data import _attr_split3
+@pytest.mark.parametrize("n", [1, 45, 77, 200])
+def test_cluster_ragged_ray_counts(sphere_scene, n):
+    """Ray counts that are not a whole number of ray blocks: the wrapper
+    pads to TILE and slices back; results keep shape (n,) and match the
+    oracle."""
+    from ti_raytrace_tpu.ops import cluster_trace as ct
 
-    a3 = np.asarray(
-        _attr_split3(np.asarray(sphere_scene.cluster_attr)), np.float32
-    )
-    A = sphere_scene.cluster_attr.shape[1]
-    rebuilt = a3[:, 0:A] + a3[:, A:2 * A] + a3[:, 2 * A:3 * A]
-    np.testing.assert_array_equal(
-        rebuilt, np.asarray(sphere_scene.cluster_attr)
-    )
+    assert n % ct.TILE or n < ct.TILE
+    o, d = _rays(sphere_scene, n, seed=30 + n)
+    t, prim, uv, attr = trace_clustered(sphere_scene, o, d, interpret=True,
+                                        want_attr=True)
+    assert t.shape == prim.shape == (n,)
+    assert uv.shape == (2, n) and attr.shape[1] == n
+    t_ref, p_ref = trace_closest(sphere_scene, jnp.swapaxes(o, 0, 1),
+                                 jnp.swapaxes(d, 0, 1))
+    t, t_ref = np.asarray(t), np.asarray(t_ref)
+    hit = t_ref < 1e5
+    assert ((t < 1e5) == hit).all()
+    np.testing.assert_allclose(np.where(hit, t, 0.0),
+                               np.where(hit, t_ref, 0.0), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("platform,interpret", [
+    ("gpu", False), ("cpu", True), ("rocm", None), ("metal", None)])
+def test_kernel_route_by_platform(platform, interpret):
+    """GPU runs the compiled kernel, CPU the interpreter, and any other
+    platform is an error rather than a silent fallback."""
+    from ti_raytrace_tpu.accel import kernel_interpret
+
+    if interpret is None:
+        with pytest.raises(RuntimeError, match="no kernel"):
+            kernel_interpret(platform)
+    else:
+        assert kernel_interpret(platform) is interpret
+
+
+def test_kernel_route_default_is_this_host():
+    """With no platform named, the route follows the first local device
+    (the CPU here: the interpreter)."""
+    from ti_raytrace_tpu.accel import kernel_interpret
+
+    assert kernel_interpret() is True
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_interpreter(gpu, sphere_scene):
+    """On the card: the Triton-compiled kernel reproduces the interpreted
+    one (same algebra; only floating-point contraction may differ)."""
+    o, d = _rays(sphere_scene, 1024, seed=40)
+    t0, p0, _ = trace_clustered(sphere_scene, o, d, interpret=True)
+    t1, p1, _ = trace_clustered(sphere_scene, o, d, interpret=False)
+    t0, t1, p0, p1 = map(np.asarray, (t0, t1, p0, p1))
+    hit = p0 >= 0
+    assert ((p1 >= 0) == hit).all()
+    np.testing.assert_allclose(t1[hit], t0[hit], rtol=1e-5, atol=1e-5)
+    assert (p1 != p0).mean() < 0.001

@@ -2,7 +2,8 @@
 
 The reference's fidelity instruments are committed PNGs
 (/root/reference/image/*, README.md:29-53); the full-resolution
-mean-abs-diff check against them runs on TPU via tools/golden.py.
+mean-abs-diff check against them runs on the card via tools/golden.py
+(chip_smoke.py phase 5).
 This CPU-suite counterpart renders each scene small and asserts the
 image statistics recorded in golden_stats.json (generated by
 scripts/gen_golden_stats.py).  An integrator regression — MIS weights,
@@ -80,7 +81,7 @@ def _check(img, rec):
 
 
 # cornell_box runs in the QUICK tier (mid-tier coverage: the default
-# run must catch estimator regressions, VERDICT r3 weak #6); the other
+# run must catch estimator regressions); the other
 # scenes stay behind the slow marker
 @pytest.mark.parametrize(
     "name",

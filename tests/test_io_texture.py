@@ -1,9 +1,14 @@
 """IO + texture + meshgen unit tests."""
 
+import glob
+import os
+
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from ti_raytrace_tpu.io.image import film_to_image, image_to_film, read_image, write_png
+from ti_raytrace_tpu.io.image import (decode_png, encode_png, film_to_image,
+                                      image_to_film, read_image, write_png)
 from ti_raytrace_tpu.io.meshgen import densify_to, split2, subdivide4
 from ti_raytrace_tpu.texture.texture import sample_nearest, texture2d
 
@@ -16,6 +21,51 @@ def test_png_roundtrip(tmp_path):
     back = read_image(p)
     assert back.shape == (16, 24, 3)
     np.testing.assert_allclose(back, img, atol=1.0 / 255.0)
+
+
+def test_png_encode_decode_exact():
+    img = np.random.default_rng(2).integers(0, 256, (7, 5, 3), np.uint8)
+    np.testing.assert_array_equal(decode_png(encode_png(img)), img)
+
+
+_ASSETS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets", "image")
+# shape (H, W, C) and a few pixels (y, x) -> value of every vendored PNG,
+# as any conforming decoder reads them
+_PINNED = {
+    "env.png": ((402, 804, 4), {(0, 0): (255, 255, 255, 255),
+                                (201, 268): (0, 0, 0, 255)}),
+    "glass.png": ((512, 512, 3), {(0, 0): (199, 177, 155),
+                                  (256, 170): (106, 110, 54)}),
+    "metal.png": ((512, 512, 3), {(256, 170): (135, 118, 75)}),
+    "non-metal.png": ((512, 512, 3), {(256, 170): (166, 158, 134)}),
+    "rainbow-far.png": ((512, 512, 3), {(256, 170): (168, 162, 170)}),
+    "rainbow-reference.png": ((810, 1440, 3), {(405, 480): (8, 0, 137)}),
+    "rainbow.png": ((512, 512, 3), {(0, 0): (0, 0, 0)}),
+    "skydome.png": ((512, 512, 3), {(0, 0): (20, 41, 54),
+                                    (256, 170): (71, 73, 52)}),
+    "spectral-cornellbox.png": ((512, 512, 3), {(256, 170): (144, 132, 134)}),
+    "veach-bdpt-TungstenRender.png": ((1024, 1024, 3),
+                                      {(512, 341): (123, 111, 101)}),
+    "veach-bdpt512.png": ((512, 512, 3), {(0, 0): (211, 211, 211),
+                                          (256, 170): (123, 112, 103)}),
+    "veach-pt512.png": ((512, 512, 3), {(256, 170): (76, 67, 58)}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PINNED))
+def test_png_decode_vendored(name):
+    with open(os.path.join(_ASSETS, name), "rb") as f:
+        px = decode_png(f.read())
+    shape, pins = _PINNED[name]
+    assert px.shape == shape
+    for (y, x), want in pins.items():
+        assert tuple(px[y, x].tolist()) == want, (name, y, x)
+
+
+def test_png_pins_cover_every_vendored_image():
+    assert sorted(os.path.basename(p) for p in
+                  glob.glob(os.path.join(_ASSETS, "*.png"))) == sorted(_PINNED)
 
 
 def test_film_image_transpose_roundtrip():

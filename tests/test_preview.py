@@ -102,5 +102,5 @@ def test_run_cli_preview_loop(tmp_path):
 
     out = str(tmp_path / "preview.png")
     main(["cornell_box", "--size", "16", "--frames", "2", "--out", out,
-          "--snapshot-every", "1", "--preview"])
+          "--snapshot-every", "1", "--preview", "--cpu"])
     assert os.path.exists(out)

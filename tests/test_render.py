@@ -162,7 +162,7 @@ def _sharded_bdpt_mirror(cornell, max_depth: int):
     key = jax.random.PRNGKey(5)
     # ONE outer jit: eagerly-dispatched ops on 8-way-sharded values cost
     # ~100 ms each on the virtual-device CPU backend — unjitted, this
-    # call alone took 7 of the quick tier's 15 minutes (VERDICT r4 #4)
+    # call alone took 7 of the quick tier's 15 minutes
     img_sharded = np.asarray(
         jax.jit(lambda s, c, fr, k: render_bdpt_frame_sharded(
             s, spec, c, fr, k, mesh, max_depth=max_depth)
@@ -215,7 +215,7 @@ def test_sharded_bdpt_matches_single_device(cornell):
     ~12 min to partition on the CPU backend (see
     test_sharded_bdpt_full_depth for the full-graph partition check).
     QUICK tier on purpose — the default run must catch sharding
-    regressions (VERDICT r3 weak #6)."""
+    regressions."""
     _sharded_bdpt_mirror(cornell, max_depth=1)
 
 
@@ -223,7 +223,7 @@ def test_sharded_bdpt_matches_single_device(cornell):
 @pytest.mark.full_graph
 def test_sharded_bdpt_full_depth(cornell):
     """The FULL ~30-strategy BDPT graph partitioned over 8 devices —
-    the expensive end-to-end sharding proof (VERDICT r2 missing #5).
+    the expensive end-to-end sharding proof.
     Run explicitly: pytest -m full_graph tests/test_render.py"""
     from ti_raytrace_tpu.integrators import bdpt_rgb
 

@@ -3,9 +3,9 @@ the same computation run shard-by-shard on one device (the mirror
 discipline of the sharded-BDPT proof, test_render.py) — compaction,
 merged groups, morton camera and the film key chain all included.
 
-VERDICT r3 weak #4: the path that ships (bench) was single-device only
-and the PT sharding test asserted only shape/non-blackness.  This is the
-bit-exact equivalence proof for the shipped path."""
+The PT sharding test asserts only shape/non-blackness; this is the
+bit-exact equivalence proof for the shipped path (chip_smoke.py --four
+runs the same comparison on four cards)."""
 
 import jax
 import jax.numpy as jnp
@@ -66,7 +66,7 @@ def test_sharded_merged_matches_per_shard(cornell):
     hdr_parts = []
 
     # one jit, same shapes per shard: compile once, execute 8x (unjitted
-    # this mirror loop was 111 s of the quick tier, VERDICT r4 #4)
+    # this mirror loop was 111 s of the quick tier)
     @jax.jit
     def one_shard(scene_, cam_, key_, i, px_sl, py_sl):
         return _merged_lane_shard(

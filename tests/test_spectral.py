@@ -121,11 +121,11 @@ def test_simpson_weights_integrate_constant():
 def test_spec_pack_pixel_row_is_value_encoded():
     """Regression (r5): pixel ids stored as f32 VALUES, never bitcast bits.
 
-    ids < 2^23 bitcast int32->f32 are denormals, and a TPU while_loop
-    fusion flushes denormals to zero — measured on sky_dome at 512^2:
-    every compacted lane's radiance scattered to pixel 0 under full jit
-    (exact in eager and on CPU, so only this encoding check can run in
-    the CPU suite)."""
+    ids < 2^23 bitcast int32->f32 are denormals, and an accelerator
+    fusion that flushes denormals to zero scatters every compacted lane's
+    radiance to pixel 0 (seen on sky_dome at 512^2 on the previous
+    accelerator; exact in eager and on CPU, so only this encoding check
+    can run in the CPU suite)."""
     from ti_raytrace_tpu.integrators import pt_spec
 
     N = 256

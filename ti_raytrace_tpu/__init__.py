@@ -1,4 +1,4 @@
-"""ti_raytrace_tpu — a TPU-native physically-based rendering framework.
+"""ti_raytrace_tpu — a physically-based rendering framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 ti-raytrace reference renderer (a single-GPU Taichi megakernel path tracer).
@@ -14,7 +14,7 @@ Layer map (mirrors SURVEY.md §1 of the reference):
   io/          OBJ/MTL, PNG, CSV loaders (host-side, numpy)
   scene/       scene pytree, builder, intersection, light sampling
   accel/       LBVH (device build) + SAH BVH (host build) + traversal
-  ops/         Pallas TPU kernels for the hot paths
+  ops/         tracers: dense sweep, Pallas (Triton) cluster kernel
   bsdf/        Disney principled BRDF, smooth dielectric glass
   spectral/    SPD tables, rgb2spec (Jakob–Hanika), hero-wavelength sampling
   sky/         Hosek–Wilkie full-spectral sky dome

@@ -3,26 +3,37 @@
 Three tracers share one contract; dispatch is on the *static* scene
 size, so each scene jits exactly one of them:
 
-  * dense planar sweep (ops/dense_trace) — VPU-bound, zero gathers,
-    one-hot MXU attribute extraction; wins for small scenes;
-  * cluster-stream Pallas kernel (ops/cluster_trace) — ray tiles vs
-    morton-ordered triangle clusters, VMEM-resident; the production
+  * dense planar sweep (ops/dense_trace) — every lane against every
+    primitive block, one-hot attribute extraction; serves small scenes;
+  * cluster-stream Pallas kernel (ops/cluster_trace) — ray blocks vs
+    superclusters/clusters of triangles, front to back; the production
     tracer for large scenes;
   * threaded-BVH wavefront traversal (accel/traverse) — the pure-XLA
     reference implementation, kept as the oracle for tests.
 
 `trace` returns (t, prim); `trace_shaded` additionally returns
-barycentrics and the packed (32, N) shading attributes (scene/packs.py).
+barycentrics and the packed (A, N) shading attributes (scene/packs.py).
 Planar convention: rays are (3, N).
 """
 
 import jax
 
+# Chosen on the previous accelerator; not yet measured on the GPU.
 DENSE_MAX_PRIMS = 4096
 
 
-def _interpret() -> bool:
-    return jax.local_devices()[0].platform != "tpu"
+def kernel_interpret(platform: str | None = None) -> bool:
+    """How the cluster kernel runs on `platform` (default: the first
+    local device's): compiled on a GPU, in the Pallas interpreter on the
+    CPU (tests and rehearsals only).  Any other platform has no kernel
+    and is an error, never a silent fallback."""
+    platform = platform or jax.local_devices()[0].platform
+    if platform == "gpu":
+        return False
+    if platform == "cpu":
+        return True
+    raise RuntimeError(
+        f"the cluster tracer has no kernel for platform {platform!r}")
 
 
 def trace(scene, origin, direction, sort_rays: bool = True,
@@ -44,30 +55,27 @@ def trace(scene, origin, direction, sort_rays: bool = True,
     the result as exact only for `prim == target` / `t-within-bound`
     predicates, which hold under both behaviors.
 
-    active + cap_frac: occupancy compaction (both tracers since r5:
-    cluster_trace.trace_clustered packs the kernel grid;
-    dense_trace.trace_planar_capped packs the block sweep) — inactive
-    lanes' results are UNDEFINED across the tracers (miss under
-    cluster/capped-dense, real hits under uncapped dense), so callers
-    may only read lanes they marked active."""
+    active + cap_frac: occupancy compaction (cluster_trace.trace_clustered
+    packs the kernel grid; dense_trace.trace_planar_capped packs the
+    block sweep) — inactive lanes' results are UNDEFINED across the
+    tracers (miss under cluster/capped-dense, real hits under uncapped
+    dense), so callers may only read lanes they marked active."""
     if scene.n_prims <= DENSE_MAX_PRIMS:
         from ti_raytrace_tpu.ops.dense_trace import (trace_planar,
                                                      trace_planar_capped)
 
         if active is not None and cap_frac is not None:
-            # r5: the dense sweep has no dead-lane early exit (every
-            # lane pays N x P), so mostly-parked wavefronts NEED the
-            # packing that the cluster kernel gets for free from its
-            # dead-tile exit.  Same contract as the cluster cap.
+            # the dense sweep has no dead-lane early exit (every lane
+            # pays N x P), so mostly-parked wavefronts need packing
             return trace_planar_capped(scene, origin, direction, active,
                                        cap_frac)
         return trace_planar(scene, origin, direction)
     from ti_raytrace_tpu.ops.cluster_trace import trace_clustered
 
     t, prim, _ = trace_clustered(
-        scene, origin, direction, interpret=_interpret(), sort_rays=sort_rays,
-        sort_small=sort_small, tile_order=tile_order, tmax=tmax,
-        active=active, cap_frac=cap_frac,
+        scene, origin, direction, interpret=kernel_interpret(),
+        sort_rays=sort_rays, sort_small=sort_small, tile_order=tile_order,
+        tmax=tmax, active=active, cap_frac=cap_frac,
     )
     return t, prim
 
@@ -79,7 +87,7 @@ def trace_shaded(scene, origin, direction, sort_rays: bool = True,
 
     shared_origin: (3,) common ray origin (pinhole camera wavefronts) —
     lets the cluster tracer use ONE shared front-to-back order instead
-    of per-tile ordering.
+    of per-block ordering.
 
     active + cap_frac: occupancy compaction (cluster tracer only; see
     `trace` above) — callers may only read lanes they marked active."""
@@ -90,15 +98,12 @@ def trace_shaded(scene, origin, direction, sort_rays: bool = True,
 
     from ti_raytrace_tpu.ops.cluster_trace import trace_clustered
 
-    # the kernel extracts the winner's attr column in VMEM (one-hot MXU
-    # matmul) — no per-lane HBM gather anywhere in the shading path
-    t, prim, uv, attr = trace_clustered(
-        scene, origin, direction, interpret=_interpret(), want_attr=True,
-        sort_rays=sort_rays, sort_small=sort_small,
+    return trace_clustered(
+        scene, origin, direction, interpret=kernel_interpret(),
+        want_attr=True, sort_rays=sort_rays, sort_small=sort_small,
         shared_origin=shared_origin, tile_order=tile_order,
         active=active, cap_frac=cap_frac,
     )
-    return t, prim, uv, attr
 
 
 def needs_presort(scene) -> bool:

@@ -1,18 +1,18 @@
-"""Cluster acceleration structure: morton-ordered triangle blocks.
+"""Cluster acceleration structure: spatially ordered triangle blocks.
 
-The TPU-native replacement for deep-tree traversal on large scenes.
-Primitives are sorted by the morton code of their centroid (the same
-spatial ordering the LBVH build uses, accel/lbvh.py) and chopped into
-fixed-size clusters of B triangles.  Each cluster stores its AABB and a
-planar (12, B) triangle block:
+A shallow replacement for deep-tree traversal on large scenes.
+Primitives are ordered by a recursive longest-axis median split (morton
+order as the fallback) and chopped into fixed-size clusters of B
+triangles.  Each cluster stores its AABB and a planar (10, B) triangle
+block:
 
-  rows 0:2 v0, 3:5 e1, 6:8 e2, 9 prim_id (float), 10:11 pad
+  rows 0:2 v0, 3:5 e1, 6:8 e2, 9 prim_id (float)
 
-Traversal (ops/cluster_trace.py) is then a two-phase streaming sweep:
-per ray-tile, slab-test all cluster AABBs (dense VPU work), and run the
-Möller-Trumbore block only for clusters some ray in the tile entered —
-the TPU analogue of a 2-level BVH with the tree replaced by a dense,
-branch-free broad phase.
+GROUP consecutive clusters form a supercluster.  Traversal
+(ops/cluster_trace.py) is a two-level sweep per ray block: box-test the
+superclusters front to back, box-test the clusters of every supercluster
+some ray enters, and run Möller-Trumbore only on clusters some ray
+entered before its current best hit.
 
 Analytic-shape primitives are excluded (handled by a dense tail pass);
 padding triangles are degenerate (e1 = e2 = 0 -> zero determinant ->
@@ -23,13 +23,11 @@ import numpy as np
 
 from ti_raytrace_tpu.core import constants as C
 
-CLUSTER_B = 128  # triangles per cluster
+CLUSTER_B = 32   # triangles per cluster; 16/32/64 swept on an H100 (PERF.md)
+GROUP = 32       # clusters per supercluster; the cluster count is padded
+                 # to a whole number of superclusters
 CLUSTER_METHOD = "median"  # "median" | "sah" (see build_clusters)
-TRI_ROWS = 12
-MT_ROWS = 16     # rows of the matmul-form narrow-phase table (see below)
-CHUNK_PAD = 128  # cluster count padded to this multiple: the traversal
-                 # kernel slices bounds in CHUNK_PAD chunks, and an
-                 # out-of-bounds dynamic slice would clamp + misalign
+TRI_ROWS = 10    # [v0 | e1 | e2 | pid]
 
 
 def _expand_bits_np(x):
@@ -147,11 +145,9 @@ def build_clusters(host: dict, block: int = CLUSTER_B,
                    method: str = None) -> dict:
     """Build cluster arrays from the host scene dict.
 
-    Returns dict(cluster_bounds (8, C), cluster_tri (TRI_ROWS, C*block),
-    cluster_attr (C*block, A) — prim_attr columns in cluster-slot order so
-    the traversal kernel extracts the winner's shading pack with a one-hot
-    MXU matmul instead of an HBM gather).
-    Always at least one cluster (degenerate if the scene has no tris).
+    Returns dict(cluster_bounds (8, C), cluster_tri (TRI_ROWS, C*block))
+    with C a multiple of GROUP.  Always at least one supercluster
+    (degenerate if the scene has no tris).
 
     method: "median" (longest-axis centroid median split, full slot
     occupancy) or "sah" (binned-SAH leaves padded to full blocks,
@@ -159,17 +155,14 @@ def build_clusters(host: dict, block: int = CLUSTER_B,
     """
     method = method or CLUSTER_METHOD
     ptype = host["prim_type"]
-    A = host["prim_attr"].shape[0]
     tri_ids = np.nonzero(ptype == C.PRIM_TRI)[0]
     T = tri_ids.shape[0]
 
     if T == 0:
-        bounds = _empty_bounds(CHUNK_PAD)
-        tri = np.zeros((TRI_ROWS, CHUNK_PAD * block), np.float32)
+        bounds = _empty_bounds(GROUP)
+        tri = np.zeros((TRI_ROWS, GROUP * block), np.float32)
         tri[9, :] = -1.0
-        attr = np.zeros((CHUNK_PAD * block, A), np.float32)
-        return dict(cluster_bounds=bounds, cluster_tri=tri, cluster_attr=attr,
-                    cluster_mt=_build_mt(tri, CHUNK_PAD, block))
+        return dict(cluster_bounds=bounds, cluster_tri=tri)
 
     v0 = host["tri_v0"][tri_ids]
     e1 = host["tri_e1"][tri_ids]
@@ -224,7 +217,7 @@ def build_clusters(host: dict, block: int = CLUSTER_B,
     else:
         leaves = [order[i:i + block] for i in range(0, T, block)]
         n_real = len(leaves)
-    n_clusters = ((n_real + CHUNK_PAD - 1) // CHUNK_PAD) * CHUNK_PAD
+    n_clusters = ((n_real + GROUP - 1) // GROUP) * GROUP
     P_pad = n_clusters * block
     slot = np.full(P_pad, -1, np.int64)
     for i, leaf in enumerate(leaves):
@@ -239,63 +232,13 @@ def build_clusters(host: dict, block: int = CLUSTER_B,
     tri[6:9] = e2[src].T * vm
     tri[9] = np.where(valid, tri_ids[src].astype(np.float32), -1.0)
 
-    attr = np.zeros((P_pad, A), np.float32)
-    attr[valid] = host["prim_attr"][:, tri_ids[src[valid]]].T
-
     bounds = _empty_bounds(n_clusters)
     for c in range(n_real):
         sel = leaves[c]
         bounds[0:3, c] = pmin[sel].min(0)
         bounds[3:6, c] = pmax[sel].max(0)
     bounds[6, :n_real] = 1.0
-    return dict(cluster_bounds=bounds, cluster_tri=tri, cluster_attr=attr,
-                cluster_mt=_build_mt(tri, n_clusters, block))
-
-
-def _build_mt(tri: np.ndarray, n_clusters: int, block: int) -> np.ndarray:
-    """Matmul-form Möller-Trumbore table (MT_ROWS, C * 4 * block).
-
-    The narrow phase's det/u/v/t are each a triple product, and a triple
-    product is LINEAR in the per-ray vector r = [o x d, d, o, 1]:
-
-        det = e1·(d x e2)          =  d·(e2 x e1)
-        u'  = (o-v0)·(d x e2)      =  (o x d)·e2      - d·(e2 x v0)
-        v'  = d·((o-v0) x e1)      = -(o x d)·e1      + d·(e1 x v0)
-        t'  = e2·((o-v0) x e1)     =  o·n - v0·n,  n = e1 x e2
-
-    so ONE (TILE, 16) @ (16, 4*block) MXU matmul per visited cluster
-    yields all four quantities for every (ray, tri) pair, replacing ~30
-    VPU ops per (TILE, block) element (ops/cluster_trace.py narrow
-    phase).  Column layout per cluster: [det | u | v | t] blocks of
-    `block` columns each.  Row 10 of the det block carries the prim id
-    (riding along the table; the ray vector's row 10 is zero, so it
-    never enters the product).  Padding triangles are all-zero ->
-    det == 0 -> guaranteed miss."""
-    P_pad = tri.shape[1]
-    v0 = tri[0:3].T.astype(np.float64)
-    e1 = tri[3:6].T.astype(np.float64)
-    e2 = tri[6:9].T.astype(np.float64)
-    n = np.cross(e1, e2)
-
-    det_c = np.zeros((MT_ROWS, P_pad), np.float32)
-    det_c[3:6] = np.cross(e2, e1).T
-    det_c[10] = tri[9]  # prim id rides along (multiplied by r[10] == 0)
-    u_c = np.zeros((MT_ROWS, P_pad), np.float32)
-    u_c[0:3] = e2.T
-    u_c[3:6] = -np.cross(e2, v0).T
-    v_c = np.zeros((MT_ROWS, P_pad), np.float32)
-    v_c[0:3] = -e1.T
-    v_c[3:6] = np.cross(e1, v0).T
-    t_c = np.zeros((MT_ROWS, P_pad), np.float32)
-    t_c[6:9] = n.T
-    t_c[9] = -np.einsum("ij,ij->i", v0, n)
-
-    # (MT_ROWS, C, 4, B): per-cluster contiguous [det | u | v | t]
-    mt = np.stack(
-        [c.reshape(MT_ROWS, n_clusters, block) for c in (det_c, u_c, v_c, t_c)],
-        axis=2,
-    )
-    return np.ascontiguousarray(mt.reshape(MT_ROWS, n_clusters * 4 * block))
+    return dict(cluster_bounds=bounds, cluster_tri=tri)
 
 
 def _empty_bounds(n: int) -> np.ndarray:

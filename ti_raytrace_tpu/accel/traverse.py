@@ -1,13 +1,14 @@
 """Stackless BVH traversal over whole ray wavefronts.
 
 The reference walks a per-pixel stack in a megakernel
-(Scene.closet_hit, Scene.py:703-744).  On TPU we traverse the *threaded*
+(Scene.closet_hit, Scene.py:703-744).  Here XLA traverses the *threaded*
 compact BVH (see accel/lbvh.py): every ray carries a single node cursor;
 descending moves to idx+1 (left child is next in DFS order, same layout
 trick as the reference's compact node), and skipping a subtree jumps to
 escape[idx].  State per ray is 3 scalars — no stack memory, no scatters,
 no overflow — and one `lax.while_loop` iteration advances every ray one
-node in lockstep on the VPU.
+node in lockstep.  This plain-XLA tracer is the oracle that the cluster
+kernel (ops/cluster_trace.py) is tested against.
 
 Early-out: a subtree is skipped when the box entry distance exceeds the
 current best hit (an optimization the reference lacks).

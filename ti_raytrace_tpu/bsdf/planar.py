@@ -2,7 +2,7 @@
 
 Same math as bsdf/disney.py and bsdf/glass.py (which mirror the reference
 brdf/ modules and carry the parity tests), but operating on (3, N) planar
-vectors with per-lane scalar parameters — the layout the TPU VPU wants.
+vectors with per-lane scalar parameters — the wavefront layout.
 """
 
 import jax.numpy as jnp

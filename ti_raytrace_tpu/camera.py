@@ -123,7 +123,7 @@ def ray_directions(spec: CameraSpec, cam: CameraState, frame, key) -> jnp.ndarra
     y = (yi + jy - spec.cy) / spec.fy
     d_cam = jnp.stack([x, y, -jnp.ones_like(x)], axis=-1)  # (W,H,3)
     r3 = cam.view_inv[:3, :3]
-    d_world = d_cam @ r3.T
+    d_world = jnp.matmul(d_cam, r3.T, precision=jax.lax.Precision.HIGHEST)
     d_world = d_world / jnp.linalg.norm(d_world, axis=-1, keepdims=True)
     return d_world.reshape(W * H, 3)
 
@@ -169,10 +169,7 @@ def ray_directions_morton(spec: CameraSpec, cam: CameraState, frame,
     as the raster path (identical ray set, permuted lanes).
 
     Computed natively in planar (3, N) form from the morton pixel
-    coordinate constants — no gather.  (A pre-planar_in attempt at
-    native generation measured 1.5x slower end-to-end, but that was the
-    kernel-operand layout cascade, fixed since; the gather variant costs
-    a real 2.5 ms/frame — scripts/exp_r4h.py.)  Returns PLANAR (3, N),
+    coordinate constants — no gather.  Returns PLANAR (3, N),
     unlike ray_directions' (N, 3)."""
     W, H = spec.width, spec.height
     perm, _ = morton_pixel_order(W, H)
@@ -207,7 +204,7 @@ def project(spec: CameraSpec, cam: CameraState, p):
     """World point -> (pixel_x, pixel_y, wi, valid): the light-tracing
     splat projection (reference get_image_point, Camera.py:145-158)."""
     ph = jnp.concatenate([p, jnp.ones_like(p[..., :1])], axis=-1)
-    pv = ph @ cam.view.T
+    pv = jnp.matmul(ph, cam.view.T, precision=jax.lax.Precision.HIGHEST)
     z = pv[..., 2]
     safe_z = jnp.where(jnp.abs(z) > 1e-12, z, -1e-12)
     u = (-pv[..., 0] / safe_z * spec.fx + spec.cx).astype(jnp.int32)

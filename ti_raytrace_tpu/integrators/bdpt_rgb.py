@@ -1,6 +1,6 @@
 """Bidirectional path tracer with multiple importance sampling (planar).
 
-Re-architecture of reference integrator/BDPT_RGB.py for TPU:
+Wavefront re-architecture of reference integrator/BDPT_RGB.py:
 
   * the eye subpath (<= MAX_DEPTH+2 = 7 vertices, BDPT_RGB.py:22-25) and
     light subpath (<= 6) are built by statically-unrolled wavefront walks;
@@ -58,13 +58,12 @@ _QUIRK_MAT_INDEX = True
 # (~55% on veach: strategies whose endpoint never materialized or is
 # delta) drop out of the kernel grid.  Contract: active lanes above
 # capacity are CUT to misses, which the consumers read as "occluded" —
-# a bias — so any cap needs measured headroom (veach active fraction is
-# 45.2-45.3% over frames, scripts/exp_r8e.py: caps 0.5/0.5625/0.625 all
-# 0 kills and BIT-IDENTICAL images).  Default None: the A/B measured no
-# frame-time change (0.898 s off vs 0.891-0.903 capped) because parked
-# lanes already carry a 1e-3 tmax seed that prunes their narrow phase
-# to nothing — the machinery stays for scenes where the broad-phase
-# floor matters (pass shadow_cap= to the render entry points).
+# a bias — so any cap needs measured headroom (veach's active fraction
+# is ~45% over frames; caps 0.5-0.625 gave 0 kills and bit-identical
+# images).  Default None: on the previous accelerator a cap bought no
+# frame time, because parked lanes already carry a 1e-3 tmax seed that
+# prunes their narrow phase; not yet measured on the GPU (pass
+# shadow_cap= to the render entry points).
 SHADOW_CAP = None
 
 
@@ -1296,7 +1295,7 @@ def render_frame_sliced(scene, spec: CameraSpec, cam, frame, key,
                         shadow_cap=None, walk_compaction=None,
                         return_overflow: bool = False):
     """BDPT frame rendered in `n_slices` sequential lane slices: the
-    13-vertex wavefront state of a full 512^2 frame exceeds HBM, so each
+    13-vertex wavefront state of a full 512^2 frame is large, so each
     slice runs the whole pipeline on 1/n of the pixels (light-tracing
     splats still land on the full film).  One compile, n executions."""
     N = spec.width * spec.height

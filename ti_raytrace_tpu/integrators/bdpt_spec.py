@@ -11,7 +11,7 @@ sensor span — the MC normalization for pdf(lambda) = 1/span).
 
 This drives the prism dispersion demo — the scene the reference could
 only run on its CPU backend (example/prism_rainbow.py:15); here it runs
-on TPU like everything else.
+on the accelerator like everything else.
 """
 
 from functools import partial

@@ -1,8 +1,9 @@
 """ctypes bindings for the native host runtime (native/tiray_native.cpp).
 
-Builds the shared library on demand with g++ (cached next to the source);
-every entry point has a pure-Python fallback, so the framework works
-without a toolchain.  Parsing semantics are asserted equal to io/obj.py
+Builds the shared library from source with g++ at first use, into
+native/build/ (untracked; rebuilt when the source is newer); every entry
+point has a pure-Python fallback, so the framework works without a
+toolchain.  Parsing semantics are asserted equal to io/obj.py
 in tests/test_native.py.
 """
 
@@ -23,13 +24,17 @@ _failed = False
 
 
 def _build() -> bool:
+    """Compile into a private temporary file and publish it atomically:
+    several processes (test workers) may build at once."""
     os.makedirs(os.path.dirname(_SO), exist_ok=True)
-    cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", _SO]
+    tmp = f"{_SO}.{os.getpid()}.tmp"
+    cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", _SRC, "-o", tmp]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-        return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    os.replace(tmp, _SO)
+    return True
 
 
 def get_lib():

@@ -57,7 +57,7 @@ class RenderMeter:
 
 
 @contextlib.contextmanager
-def profile_trace(logdir: str = "/tmp/tiray_profile"):
+def profile_trace(logdir: str):
     """Capture a jax.profiler trace around a code block."""
     import jax
 

@@ -1,34 +1,36 @@
-"""Pallas TPU kernel: ray-tile x cluster-stream closest-hit traversal.
+"""Pallas (Triton route) kernel: ray-block x cluster-stream closest hit.
 
-For scenes too large for the dense sweep, this kernel implements a
-chunked front-to-back cluster sweep entirely in VMEM:
+For scenes too large for the dense sweep.  One program owns a block of
+TILE rays; each thread of the program holds one ray's state (origin,
+inverse direction, best hit) in registers and the program walks the
+scene's clusters (accel/clusters.py) front to back:
 
-  grid over ray tiles (TILE rays per program);
-  clusters are visited in a per-tile front-to-back order (precomputed
-  outside: distance from the tile's ray-origin bounding sphere to each
-  cluster box), in chunks of 128.  Each chunk is slab-tested against the
-  whole tile in one dense (TILE, 128) pass, and a cluster becomes a
-  *candidate* only if some ray both enters its box AND could still find
-  a closer hit there (box entry < the ray's current best t) — this is
-  per-ray front-to-back early exit: as rays find hits, the clusters
-  behind those hits stop being visited, per ray, automatically.
-  Candidate clusters run a (TILE, B) Möller-Trumbore block; the winning
-  triangle's shading attributes are extracted in-kernel with a one-hot
-  MXU matmul against the VMEM-resident cluster_attr table (no HBM
-  gather anywhere in the hot path).
+  for each supercluster (GROUP consecutive clusters) in the program's
+  front-to-back order:
+      skip it unless some ray enters its box before that ray's best t;
+      for each of its clusters:
+          skip it unless some ray enters its box before its best t;
+          intersect every ray with the cluster's B triangles
+          (Moller-Trumbore, one triangle per step, triangle data loaded
+          once per program and broadcast to all rays).
 
-No per-lane gathers, no pointer chasing, no stacks.  Ray coherence is
-restored per bounce by sorting the wavefront on a morton key of
-(origin, direction octant); terminated rays are parked far away, so
-all-dead tiles fail every slab test and cost only the (cheap) slab
-sweep.
+The per-ray `entry < best t` test is per-ray front-to-back early exit:
+as rays find hits, clusters behind those hits stop being visited.  The
+kernel returns (t, prim, u, v) only; callers that need the shading pack
+gather `scene.prim_attr[:, prim]` once, outside the kernel.
 
-Layout notes: rays (N, 8) rows [ox oy oz dx dy dz * *] in TILE blocks;
-cluster bounds pre-permuted per tile into front-to-back order
-(n_tiles, 8, C); triangle blocks (12, C*B) planar in global cluster
-order; attr blocks (C*B, A) row-major; per-tile order table (1, C)
-int32 in SMEM maps sweep position -> global cluster id.  Output
-(TILE, OUT_W): [t, prim, u, v, attr[0:A], visited, 0...].
+Ray coherence is restored per bounce by sorting the wavefront on a
+morton key of (origin, direction octant); dead lanes (zero direction)
+start with best t = 0 and never enter a box, and terminated rays parked
+far outside the scene miss every box, so all-dead blocks cost only the
+supercluster sweep.
+
+Layout: rays planar (8, N) rows [ox oy oz dx dy dz tmax 0]; the cluster
+order (rows, S) int32 with one row per program (per-block order) or one
+shared row; supercluster bounds (8, S) and cluster bounds (8, C) in
+global order with validity in row 6; triangle blocks (10, C*B) planar
+[v0 | e1 | e2 | pid].
+Output (4, N): t, prim (as f32), u, v.
 """
 
 import functools
@@ -36,789 +38,149 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
+from ti_raytrace_tpu.accel.clusters import GROUP
 from ti_raytrace_tpu.core import constants as C
-from ti_raytrace_tpu.scene.packs import PRIM_A
 
-TILE = 256       # rays per kernel program (sweep: 256 beats 512/1024)
-# Small compacted wavefronts are per-PROGRAM-overhead bound (measured:
-# deep-phase kernel cost per tile RISES from 12.6 us at a 1024-program
-# grid to 79 us at a 16-program grid, and shrinking TILE makes frames
-# slower: 256 -> 82.7, 128 -> 92.7, 64 -> 123.6 ms; scripts/exp_r3i.py).
-# Below TILE_WIDE_CUTOFF lanes the tracer therefore uses FEWER, WIDER
-# programs instead.
-TILE_WIDE = 512        # tile for small wavefronts when CUTOFF > 0
-TILE_WIDE_CUTOFF = 0   # DISABLED: measured a loss in both directions
-                       # (512@65536: 92.5 ms, 1024@65536: 120.3, vs 82.7
-                       # at uniform 256 — deep-phase visits/tile do not
-                       # shrink with fewer, wider programs)
-CHUNK = 128      # clusters slab-tested per dense pass
-GROUP = 32       # candidate refresh granularity within a chunk
-TSKIP = False    # skip whole chunks behind the tile's worst best-t
-                 # (front-to-back order makes min-entry monotone-ish);
-                 # conservative and exact (A/B means bit-identical), but
-                 # a measured LOSS on the 100k bench: 94.9 -> 97.7 ms
-                 # best-frame (scripts/exp_r3j.py, in-process A/B) — the
-                 # per-chunk (TILE,1) tmax reductions cost more than the
-                 # few skipped sweeps at ~7 chunks/scene.  Re-evaluate on
-                 # scenes with many more chunks.
-SMALL_WAVEFRONT = 32768  # below this, skip sort + per-tile ordering
-NSUB = 1         # sub-tile granularity of the narrow phase: candidate
-                 # counts tracked per TILE/NSUB-row sub-tile, MT block
-                 # runs only on sub-tiles with a candidate ray.  Measured
-                 # a LOSS on the 100k bench (NSUB 1/2/4 = 85.6/94.9/125.4
-                 # ms/frame, scripts/exp_r3i.py): the extra per-sub
-                 # pl.when regions and scalar reads cost more than the
-                 # halved vector volume.  1 = off (production).
-MT_MXU = False   # narrow phase as ONE (TILE,16)@(16,4B) MXU matmul per
-                 # visited cluster (accel/clusters._build_mt) instead of
-                 # ~30 VPU ops per (TILE,B) element.  Correct (tpu_smoke
-                 # bit-exact, oracle tests pass) but a measured LOSS:
-                 # 146.4 vs 93.0 ms/frame (scripts/exp_r3i.py MT_MXU=1/0)
-                 # — at K=16 the systolic array runs 87% empty and
-                 # Precision.HIGHEST multiplies the passes by 6, so one
-                 # visit costs ~6.5 us of MXU latency vs ~1.4 us of VPU
-                 # throughput.  Kept behind this flag as the measured
-                 # record; the narrow phase stays on the VPU.
-BITMASK_NARROW = True    # narrow phase iterates set bits of a per-group
-                         # candidate bitmask instead of GROUP scalar
-                         # read+branch iterations (A/B: exp_r4g.py)
-REFRESH = 4      # groups per candidate refresh (BITMASK_NARROW only):
-                 # the (tn < best) candidate mask + counts matmul run once
-                 # per REFRESH groups instead of per group.  Coarser
-                 # refresh = fewer broad-phase MXU dots per chunk but
-                 # less front-to-back pruning (a candidate SUPERSET —
-                 # the narrow phase is exact either way, so renders are
-                 # bit-identical at any value).  Measured (exp_r6a,
-                 # in-process, 100k bench): 1/2/4 = 41.8/40.4/38.5
-                 # ms/frame, renders BIT-IDENTICAL — 4 (one refresh per
-                 # chunk, the max at CHUNK/GROUP=4) is production.
-                 #
-                 # SCENE-SIZE DEPENDENT: at REFRESH=4 the whole chunk's
-                 # candidates derive from best_t as it stood BEFORE the
-                 # chunk — on a single-chunk scene (<= 128 clusters,
-                 # e.g. veach's 90) that is best = INF, which disables
-                 # per-ray front-to-back pruning ENTIRELY (the r2 2.6x
-                 # lever).  trace_clustered therefore clamps the refresh
-                 # period to the chunk count: n_chunks >= 4 keeps 4
-                 # (bench unchanged), small scenes refresh per group.
-ATTR_HIGH = False  # attr one-hot extraction at Precision.HIGH: DOES NOT
-                   # LOWER — Mosaic's dot rejects Precision.HIGH (only
-                   # DEFAULT/HIGHEST); kept as the record.  The working
-                   # version of the idea is ATTR_SPLIT3 below.
-DEFER_ATTR = False   # extract attributes once per IMPROVING cluster
-                     # after the chunk sweep instead of once per visit:
-                     # _visit only sets the cluster's bit in a per-chunk
-                     # SMEM winner mask; a post-loop walks the set bits
-                     # and one-hot-matches the final best prim id
-                     # against each cluster's pid row (globally unique;
-                     # padding rows carry pid -1 + zero attrs).
-                     # BIT-EXACT (interpret A/B, both wavefront regimes)
-                     # but a measured LOSS: 41.8 vs 38.8 ms/frame on the
-                     # 100k bench (scripts/exp_r7b.py, renders
-                     # bit-identical) — the per-visit attr dot is MXU
-                     # work that OVERLAPS the VPU narrow phase, so
-                     # removing it saves nothing, while the deferred
-                     # variant adds one serial (TILE,1) any-reduction +
-                     # SMEM RMW per visit.  Kept as the measured record.
-ATTR_SPLIT3 = False  # attr one-hot extraction against the bf16x3 split
-                     # table scene.cluster_attr3 (B, 3A): ONE
-                     # default-precision bf16 MXU pass + a 3-way column-
-                     # group add, instead of HIGHEST's 6 passes over the
-                     # f32 table.  EXACT (tpu_smoke bit-exact, oracle
-                     # tests pass; the one-hot is 0/1 and
-                     # a1+a2+a3 == attr bit for bit, scene/data
-                     # ._attr_split3) but a measured LOSS on the 100k
-                     # bench: 39.7 vs 38.5 ms/frame, renders
-                     # BIT-IDENTICAL (scripts/exp_r6b.py) — the attr dot
-                     # is MXU-latency-bound per visit, not pass-count-
-                     # bound, and the wider bf16 operand + 3-way add
-                     # cost more than the 5 saved passes.  Kept as the
-                     # measured record.
-PER_TILE_ORDER = True    # False: shared static cluster order for all tiles
-DIAG_NO_NARROW = False   # DIAGNOSTIC ONLY: skip the narrow phase to time
-                         # the broad phase + fixed overhead (renders miss
-                         # everything — never ship)
-BF16_SLAB = False        # broad phase in bf16: slab operands translated
-                         # to the tile's first ray origin in f32 (keeps
-                         # the b-o subtraction well-conditioned), rounded
-                         # to bf16, test widened by a 3% conservative
-                         # margin (candidate superset -> renders stay
-                         # bit-identical; verified).  Measured a LOSS:
-                         # 90.0 vs 80.7 ms/frame (scripts/exp_r3i.py) —
-                         # Mosaic v5e bf16 elementwise doesn't run 2x
-                         # (and has no bf16 vector compare; the
-                         # up/down-casts eat any packing gain).
-ORIGIN_MT = True   # shared-origin wavefronts (camera rays: one pinhole
-                   # origin for every lane and every frame) precompute
-                   # the origin-dependent Moller-Trumbore terms per
-                   # triangle OUTSIDE the kernel: with T = o - v0 fixed,
-                   # det = d.(e2 x e1), u = d.(e2 x T), v = d.(T x e1),
-                   # t = e2.(T x e1) * sign(det) — the narrow phase
-                   # drops from ~40 to ~25 vector ops per visit.  The
-                   # (12, C*B) table is built in-graph from cluster_tri
-                   # (~25 MFLOP, hoisted out of the per-frame scan since
-                   # the origin is loop-invariant).  NOT bit-identical
-                   # to the generic path (different op order) — gated by
-                   # the golden bounds + oracle tolerance tests.
-ATTR_ROWS = PRIM_A  # attr rows carried through the kernel
-OUT_W = 48       # t, prim, u, v, attr(ATTR_ROWS), visited, pad
-VISITED_COL = 4 + ATTR_ROWS  # diagnostics column in the OUT_W record
-CHUNKS_COL = VISITED_COL + 1  # diagnostics: cluster-chunks slab-swept
-assert CHUNKS_COL < OUT_W, "PRIM_A grew past the kernel's OUT_W record"
+TILE = 32        # rays per program: one warp, one ray per thread
+NUM_WARPS = 1    # TILE // 32
+UNROLL = 4       # triangles intersected per step of the narrow loop
+SMALL_WAVEFRONT = 32768  # below this, skip sort + per-block ordering
+OUT_ROWS = 4     # t, prim, u, v
 
 
-def _bit_index(low):
-    """Bit index of an isolated low bit via 5 mask tests (pure int32
-    scalar ops — Mosaic has no uint32->f32 cast for the float-exponent
-    trick, and bit 31 is negative as int32 so signed float math corrupts
-    it anyway)."""
-    k = jnp.int32(0)
-    for shift, m in ((4, -65536),        # 0xFFFF0000
-                     (3, -16711936),     # 0xFF00FF00
-                     (2, -252645136),    # 0xF0F0F0F0
-                     (1, -858993460),    # 0xCCCCCCCC
-                     (0, -1431655766)):  # 0xAAAAAAAA
-        k = k | (
-            ((low & jnp.int32(m)) != 0).astype(jnp.int32) << shift
-        )
-    return k
-
-
-def _kernel(rays_ref, cb_ref, sb_ref, order_ref, tri_ref, attr_ref, mt_ref,
-            out_ref, best_ref, battr_ref, counts_ref, scounts_ref, stmin_ref,
-            visited_ref, winners_ref, *, n_clusters, n_supers_pad, block,
-            want_attr, planar_out=False, planar_in=False, origin_mt=False,
-            refresh=REFRESH):
-    if planar_in:
-        # planar (8, tile) ray block: the operand layout then matches the
-        # caller's planar wavefront exactly.  Feeding the (N, 8) operand
-        # from planar o/d flips XLA's layout assignment for the WHOLE
-        # bounce body to lane-major (+35 ms/frame of fragmented fusions,
-        # scripts/exp_r4b/r4c.py) — the in-kernel transpose costs one
-        # (8, tile) shuffle per program instead.
-        rays = jnp.swapaxes(rays_ref[:, :], 0, 1)       # (tile, 8)
-        ox, oy, oz = rays[:, 0:1], rays[:, 1:2], rays[:, 2:3]
-        dx, dy, dz = rays[:, 3:4], rays[:, 4:5], rays[:, 5:6]
-        t6 = rays[:, 6:7]
-    else:
-        ox = rays_ref[:, 0:1]
-        oy = rays_ref[:, 1:2]
-        oz = rays_ref[:, 2:3]
-        dx = rays_ref[:, 3:4]
-        dy = rays_ref[:, 4:5]
-        dz = rays_ref[:, 5:6]
-        t6 = rays_ref[:, 6:7]
-
-    if MT_MXU:
-        # per-ray matmul vector r = [o x d, d, o, 1, 0...] (TILE, 16);
-        # each visited cluster's det/u/v/t then come from one MXU pass
-        # against the precomputed table (accel/clusters._build_mt)
-        zeros = jnp.zeros_like(ox)
-        r16 = jnp.concatenate(
-            [
-                oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx,
-                dx, dy, dz, ox, oy, oz, jnp.ones_like(ox),
-                zeros, zeros, zeros, zeros, zeros, zeros,
-            ],
-            axis=1,
-        )
+def _kernel(rays_ref, order_ref, sb_ref, cb_ref, tri_ref, out_ref, *,
+            n_supers, block, per_block_order):
+    ox, oy, oz = rays_ref[0, :], rays_ref[1, :], rays_ref[2, :]
+    dx, dy, dz = rays_ref[3, :], rays_ref[4, :], rays_ref[5, :]
+    tmax = rays_ref[6, :]
 
     def safe_inv(v):
-        return 1.0 / jnp.where(jnp.abs(v) < 1e-12, jnp.where(v >= 0, 1e-12, -1e-12), v)
+        return 1.0 / jnp.where(jnp.abs(v) < 1e-12,
+                               jnp.where(v >= 0, 1e-12, -1e-12), v)
 
     ix, iy, iz = safe_inv(dx), safe_inv(dy), safe_inv(dz)
+    live = (dx != 0.0) | (dy != 0.0) | (dz != 0.0)
+    # per-lane tmax seed (<= 0 means unbounded): shadow rays know their
+    # target distance, so everything beyond it prunes from the start.
+    # Dead lanes start at 0 and never become candidates.
+    best_t = jnp.where(live, jnp.where(tmax > 0.0, tmax, C.INF), 0.0)
+    zeros = jnp.zeros_like(ox)
+    state = (best_t, zeros - 1.0, zeros, zeros)
+    row = pl.program_id(0) if per_block_order else 0
 
-    # per-lane tmax seed (ray col 6; <= 0 means unbounded): shadow rays
-    # know their target distance, so best_t starts there and every
-    # cluster/triangle beyond the target prunes from the first group.
-    # Exact for occlusion consumers: a hit beyond tmax can never satisfy
-    # `prim == target`, and t is only read where the prim matches.
-    best_ref[:, 0:1] = jnp.where(t6 > 0.0, t6, jnp.full_like(ox, C.INF))
-    best_ref[:, 1:2] = jnp.full_like(ox, -1.0)       # prim id
-    best_ref[:, 2:3] = jnp.zeros_like(ox)            # u
-    best_ref[:, 3:4] = jnp.zeros_like(ox)            # v
-    best_ref[:, 4:5] = jnp.zeros_like(ox)            # enters any super box
-    if want_attr:
-        battr_ref[:, :] = jnp.zeros_like(battr_ref)
-    visited_ref[0] = jnp.int32(0)
-    visited_ref[1] = jnp.int32(0)  # chunks slab-swept
-    defer_attr = want_attr and DEFER_ATTR and NSUB == 1
-    if defer_attr:
-        for wi in range((n_clusters // CHUNK) * (CHUNK // 32)):
-            winners_ref[wi] = jnp.int32(0)
+    def any_candidate(ref, c, best):
+        """Does some ray enter box c of a (8, n) bounds ref before its
+        best hit?  Row 6 is the validity flag (accel/clusters.py
+        _empty_bounds)."""
+        t1x = (ref[0, c] - ox) * ix
+        t2x = (ref[3, c] - ox) * ix
+        t1y = (ref[1, c] - oy) * iy
+        t2y = (ref[4, c] - oy) * iy
+        t1z = (ref[2, c] - oz) * iz
+        t2z = (ref[5, c] - oz) * iz
+        tn = jnp.maximum(jnp.maximum(jnp.minimum(t1x, t2x),
+                                     jnp.minimum(t1y, t2y)),
+                         jnp.maximum(jnp.minimum(t1z, t2z), 0.0))
+        tf = jnp.minimum(jnp.minimum(jnp.maximum(t1x, t2x),
+                                     jnp.maximum(t1y, t2y)),
+                         jnp.maximum(t1z, t2z))
+        cand = (tn <= tf) & (tn < best)
+        return (jnp.max(cand.astype(jnp.int32)) > 0) & (ref[6, c] > 0.0)
 
-    n_chunks = n_clusters // CHUNK
-    tile = rays_ref.shape[1] if planar_in else rays_ref.shape[0]
-    H = tile // NSUB  # sub-tile rows
-    lane_iota = jax.lax.broadcasted_iota(jnp.int32, (1, CHUNK), 1)
-    tri_iota = jax.lax.broadcasted_iota(jnp.int32, (H, block), 1)
-    ones_col = jnp.ones((tile, 1), jnp.float32)
-    # sub-tile selector (tile, NSUB): column s is 1 on rows of sub-tile s
-    sub_sel = (
-        jax.lax.broadcasted_iota(jnp.int32, (tile, NSUB), 0) // H
-        == jax.lax.broadcasted_iota(jnp.int32, (tile, NSUB), 1)
-    ).astype(jnp.float32)
+    def triangle(col, st):
+        best, prim, bu, bv = st
+        pid = tri_ref[9, col]
+        v0x, v0y, v0z = tri_ref[0, col], tri_ref[1, col], tri_ref[2, col]
+        e1x, e1y, e1z = tri_ref[3, col], tri_ref[4, col], tri_ref[5, col]
+        e2x, e2y, e2z = tri_ref[6, col], tri_ref[7, col], tri_ref[8, col]
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        sgn = jnp.sign(det)
+        tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+        u = (tx * px + ty * py + tz * pz) * sgn
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        v = (dx * qx + dy * qy + dz * qz) * sgn
+        t = (e2x * qx + e2y * qy + e2z * qz) * sgn
+        adet = jnp.abs(det)
+        ok = ((adet > 1e-12) & (u >= 0.0) & (u <= adet) & (v >= 0.0)
+              & (u + v <= adet))
+        inv = 1.0 / jnp.where(ok, adet, 1.0)
+        t = t * inv
+        closer = ok & (t > 0.0) & (t < best)
+        return (jnp.where(closer, t, best), jnp.where(closer, pid, prim),
+                jnp.where(closer, u * inv, bu), jnp.where(closer, v * inv, bv))
 
-    if BF16_SLAB:
-        # tile anchor: first (alive-first-sorted) ray's origin.  The
-        # translation happens in f32 BEFORE the bf16 round, so the b-o
-        # subtraction stays well-conditioned near the tile.
-        ax, ay, az = ox[0:1], oy[0:1], oz[0:1]
-        bf = jnp.bfloat16
-        oxb, oyb, ozb = ((ox - ax).astype(bf), (oy - ay).astype(bf),
-                         (oz - az).astype(bf))
-        ixb, iyb, izb = ix.astype(bf), iy.astype(bf), iz.astype(bf)
+    def narrow(cid, st):
+        def body(j, st):
+            col = cid * block + j * UNROLL
+            for k in range(UNROLL):
+                st = triangle(col + k, st)
+            return st
 
-    def slab(ref, s):
-        """Slab test of the tile vs 128 boxes of a (1, 8, L) bounds ref.
-        Row 6 = validity (accel/clusters.py _empty_bounds: min > max does
-        NOT encode a miss in a branchless slab test).  Returns (tn, hit);
-        under BF16_SLAB tn is a conservative LOWER bound (safe for the
-        front-to-back pruning), hit a superset of the f32 test."""
-        if BF16_SLAB:
-            bf = jnp.bfloat16
-            t1x = ((ref[0, 0:1, s] - ax).astype(bf) - oxb) * ixb
-            t2x = ((ref[0, 3:4, s] - ax).astype(bf) - oxb) * ixb
-            tn = jnp.minimum(t1x, t2x)
-            tf = jnp.maximum(t1x, t2x)
-            t1y = ((ref[0, 1:2, s] - ay).astype(bf) - oyb) * iyb
-            t2y = ((ref[0, 4:5, s] - ay).astype(bf) - oyb) * iyb
-            tn = jnp.maximum(tn, jnp.minimum(t1y, t2y))
-            tf = jnp.minimum(tf, jnp.maximum(t1y, t2y))
-            t1z = ((ref[0, 2:3, s] - az).astype(bf) - ozb) * izb
-            t2z = ((ref[0, 5:6, s] - az).astype(bf) - ozb) * izb
-            tn = jnp.maximum(tn, jnp.minimum(t1z, t2z))
-            tf = jnp.minimum(tf, jnp.maximum(t1z, t2z))
-            # 3% conservative margin >> the ~2^-7 accumulated bf16
-            # error; margins + comparison upcast to f32 (Mosaic v5e has
-            # no bf16 vector compare)
-            tnf = tn.astype(jnp.float32)
-            tff = tf.astype(jnp.float32)
-            tnf = tnf - 0.03 * jnp.abs(tnf)
-            tff = tff + 0.03 * jnp.abs(tff)
-            hit = (jnp.maximum(tnf, 0.0) <= tff) & (ref[0, 6:7, s] > 0.0)
-            return tnf, hit
-        t1x = (ref[0, 0:1, s] - ox) * ix
-        t2x = (ref[0, 3:4, s] - ox) * ix
-        tn = jnp.minimum(t1x, t2x)
-        tf = jnp.maximum(t1x, t2x)
-        t1y = (ref[0, 1:2, s] - oy) * iy
-        t2y = (ref[0, 4:5, s] - oy) * iy
-        tn = jnp.maximum(tn, jnp.minimum(t1y, t2y))
-        tf = jnp.minimum(tf, jnp.maximum(t1y, t2y))
-        t1z = (ref[0, 2:3, s] - oz) * iz
-        t2z = (ref[0, 5:6, s] - oz) * iz
-        tn = jnp.maximum(tn, jnp.minimum(t1z, t2z))
-        tf = jnp.minimum(tf, jnp.maximum(t1z, t2z))
-        hit = (jnp.maximum(tn, 0.0) <= tf) & (ref[0, 6:7, s] > 0.0)
-        return tn, hit
+        return jax.lax.fori_loop(0, block // UNROLL, body, st)
 
-    # ---- supercluster pre-pass: which GROUP-cluster runs have any ray?
-    # Tiles over empty space (terminated/parked lanes, sky) skip the
-    # whole per-cluster slab sweep, not just the narrow phase.  With
-    # TSKIP the pass also records each chunk's minimum super-box entry
-    # distance (SMEM scalars) for best-t chunk skipping below.
-    spc = CHUNK // GROUP  # supers per cluster-chunk
-    for si in range(n_supers_pad // CHUNK):
-        sbase = si * CHUNK
-        s_tn, s_hit = slab(sb_ref, pl.ds(sbase, CHUNK))
-        scounts_ref[pl.ds(sbase, CHUNK), :] = jax.lax.dot_general(
-            s_hit.astype(jnp.float32), ones_col, (((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )
-        if TSKIP:
-            masked = jnp.where(s_hit, jnp.maximum(s_tn, 0.0), C.INF)
-            # rays entering no super box anywhere can never be improved
-            # (cluster boxes are subsets of their super box): exclude
-            # them from the chunk-skip tmax below, else one sky lane's
-            # best=INF pins tmax=INF and disables the skip for its tile
-            best_ref[:, 4:5] = jnp.maximum(
-                best_ref[:, 4:5],
-                jnp.max(s_hit.astype(jnp.float32), axis=1, keepdims=True),
-            )
-            for k in range(CHUNK // spc):  # cluster-chunks this si covers
-                c = si * (CHUNK // spc) + k
-                if c >= n_clusters // CHUNK:
-                    break
-                stmin_ref[c] = jnp.min(masked[:, k * spc:(k + 1) * spc])
+    def cluster_body(sid, g, st):
+        cid = sid * GROUP + g
+        return jax.lax.cond(any_candidate(cb_ref, cid, st[0]),
+                            functools.partial(narrow, cid),
+                            lambda s: s, st)
 
-    def chunk_body(ci, _):
-        base = pl.multiple_of(ci * CHUNK, CHUNK)
-        sl = pl.ds(base, CHUNK)
+    def super_body(k, st):
+        sid = order_ref[row, k]
 
-        # supercluster skip: this chunk is CHUNK//GROUP runs of GROUP
-        # clusters; if no ray entered any of their super boxes, skip
-        # even the slab sweep
-        # (scalar reads: a reduction over a dynamic VMEM slice does not
-        # lower in Mosaic)
-        sbase = ci * (CHUNK // GROUP)
-        super_any = scounts_ref[sbase, 0]
-        for k in range(1, CHUNK // GROUP):
-            super_any = super_any + scounts_ref[sbase + k, 0]
+        def clusters(st):
+            return jax.lax.fori_loop(
+                0, GROUP, functools.partial(cluster_body, sid), st)
 
-        run = super_any > 0.0
-        if TSKIP:
-            # best-t chunk skip: chunks are visited in (supercluster)
-            # front-to-back order, so once every ray's best hit is closer
-            # than the chunk's nearest box entry, the chunk (slab sweep
-            # included) cannot improve any lane.  Conservative and exact:
-            # stmin <= entry(r, c) for every ray r / cluster c in the
-            # chunk, and tmax >= best(r) for every ray.
-            tmax = jnp.max(
-                jnp.where(best_ref[:, 4:5] > 0.0, best_ref[:, 0:1], 0.0)
-            )
-            run = run & (stmin_ref[ci] < tmax)
+        return jax.lax.cond(any_candidate(sb_ref, sid, st[0]), clusters,
+                            lambda s: s, st)
 
-        @pl.when(run)
-        def _():
-            visited_ref[1] = visited_ref[1] + 1
-            _sweep_chunk(base, sl)
-
-        return 0
-
-    def _sweep_chunk(base, sl):
-        tn, hit_geo = slab(cb_ref, sl)
-
-        # per-ray front-to-back pruning: a cluster is a candidate only
-        # for rays whose current best hit lies beyond its box entry.
-        # best_t changes as clusters are visited, so candidates are
-        # re-derived from the chunk's slab results every GROUP clusters —
-        # one straggler ray stops costing the whole chunk.
-        def _visit(base, jj, s=0):
-            visited_ref[0] = visited_ref[0] + 1
-            cid = order_ref[0, 0, base + jj]
-            tbase = pl.multiple_of(cid * block, 128)
-            r = slice(s * H, (s + 1) * H)
-            if MT_MXU:
-                mtbase = pl.multiple_of(cid * (4 * block), 512)
-                m = mt_ref[:, pl.ds(mtbase, 4 * block)]  # (16,4B)
-                prod = jax.lax.dot_general(
-                    r16[r], m, (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST,
-                )                                        # (H, 4B)
-                det = prod[:, 0 * block:1 * block]
-                u = prod[:, 1 * block:2 * block]
-                v = prod[:, 2 * block:3 * block]
-                t = prod[:, 3 * block:4 * block]
-                pid = m[10:11, 0:block]                  # (1, B)
-                sgn = jnp.sign(det)
-                adet = jnp.abs(det)
-                u = u * sgn
-                v = v * sgn
-                t = t * sgn
-            elif origin_mt:
-                # shared-origin narrow phase: tri_ref rows are the
-                # precomputed [n | s | q | pid | tconst] table (see
-                # _origin_mt_table) — three dot products per (ray, tri)
-                tsl = pl.ds(tbase, block)
-                pid = tri_ref[9:10, tsl]
-                dxs, dys, dzs = dx[r], dy[r], dz[r]
-                det = (dxs * tri_ref[0:1, tsl] + dys * tri_ref[1:2, tsl]
-                       + dzs * tri_ref[2:3, tsl])
-                sgn = jnp.sign(det)
-                adet = jnp.abs(det)
-                u = (dxs * tri_ref[3:4, tsl] + dys * tri_ref[4:5, tsl]
-                     + dzs * tri_ref[5:6, tsl]) * sgn
-                v = (dxs * tri_ref[6:7, tsl] + dys * tri_ref[7:8, tsl]
-                     + dzs * tri_ref[8:9, tsl]) * sgn
-                t = tri_ref[10:11, tsl] * sgn
-            else:
-                tsl = pl.ds(tbase, block)
-                v0x = tri_ref[0:1, tsl]
-                v0y = tri_ref[1:2, tsl]
-                v0z = tri_ref[2:3, tsl]
-                e1x = tri_ref[3:4, tsl]
-                e1y = tri_ref[4:5, tsl]
-                e1z = tri_ref[5:6, tsl]
-                e2x = tri_ref[6:7, tsl]
-                e2y = tri_ref[7:8, tsl]
-                e2z = tri_ref[8:9, tsl]
-                pid = tri_ref[9:10, tsl]
-
-                dxs, dys, dzs = dx[r], dy[r], dz[r]
-                px = dys * e2z - dzs * e2y
-                py = dzs * e2x - dxs * e2z
-                pz = dxs * e2y - dys * e2x
-                det = e1x * px + e1y * py + e1z * pz
-                sgn = jnp.sign(det)
-                adet = jnp.abs(det)
-                tx = ox[r] - v0x
-                ty = oy[r] - v0y
-                tz = oz[r] - v0z
-                u = (tx * px + ty * py + tz * pz) * sgn
-                qx = ty * e1z - tz * e1y
-                qy = tz * e1x - tx * e1z
-                qz = tx * e1y - ty * e1x
-                v = (dxs * qx + dys * qy + dzs * qz) * sgn
-                t = (e2x * qx + e2y * qy + e2z * qz) * sgn
-            ok = (
-                (adet > 1e-12)
-                & (u >= 0.0)
-                & (u <= adet)
-                & (v >= 0.0)
-                & (u + v <= adet)
-            )
-            inv = 1.0 / jnp.where(adet > 1e-12, adet, 1.0)
-            t = jnp.where(ok, t * inv, C.INF)
-            t = jnp.where(t > 0.0, t, C.INF)
-
-            tmin = jnp.min(t, axis=1, keepdims=True)    # (H,1)
-            closer = tmin < best_ref[r, 0:1]
-            arg = jnp.argmin(t, axis=1).astype(jnp.int32)  # (H,)
-            onehot = (tri_iota == arg[:, None]).astype(jnp.float32)
-            onehot = onehot * closer.astype(jnp.float32)
-            pid_win = jnp.sum(onehot * pid, axis=1, keepdims=True)
-            u_win = jnp.sum(onehot * (u * inv), axis=1,
-                            keepdims=True)
-            v_win = jnp.sum(onehot * (v * inv), axis=1,
-                            keepdims=True)
-
-            best_ref[r, 0:1] = jnp.where(closer, tmin,
-                                         best_ref[r, 0:1])
-            best_ref[r, 1:2] = jnp.where(closer, pid_win,
-                                         best_ref[r, 1:2])
-            best_ref[r, 2:3] = jnp.where(closer, u_win,
-                                         best_ref[r, 2:3])
-            best_ref[r, 3:4] = jnp.where(closer, v_win,
-                                         best_ref[r, 3:4])
-
-            if defer_attr:
-                # mark the cluster as improving; the one-hot extraction
-                # runs once per IMPROVING cluster after the chunk loop
-                # (the per-visit HIGHEST matmul dominated narrow-phase
-                # time at 17-62 visits/tile vs ~1-6 improving clusters).
-                # No winner ids are tracked: the winning prim id already
-                # lives in best_ref[:, 1:2] and is globally unique, so
-                # the extraction one-hot is (best_pid == pid row).
-                any_closer = jnp.max(closer.astype(jnp.int32))
-                widx = (base // CHUNK) * (CHUNK // 32) + jj // 32
-                winners_ref[widx] = winners_ref[widx] | jnp.where(
-                    any_closer > 0,
-                    jnp.left_shift(jnp.int32(1), jj % 32),
-                    jnp.int32(0),
-                )
-            elif want_attr and ATTR_SPLIT3:
-                ab = attr_ref[pl.ds(tbase, block), :]   # (B, 3A) bf16
-                prod = jax.lax.dot_general(
-                    onehot.astype(jnp.bfloat16), ab,
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )                                       # (H, 3A)
-                attr_win = (prod[:, 0:ATTR_ROWS]
-                            + prod[:, ATTR_ROWS:2 * ATTR_ROWS]
-                            + prod[:, 2 * ATTR_ROWS:3 * ATTR_ROWS])
-                battr_ref[r, :] = jnp.where(
-                    closer, attr_win, battr_ref[r, :]
-                )
-            elif want_attr:
-                ab = attr_ref[pl.ds(tbase, block), :]   # (B, A)
-                # HIGHEST: the MXU's default bf16 passes would
-                # round the extracted attributes
-                attr_win = jax.lax.dot_general(
-                    onehot, ab, (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST,
-                )                                       # (H, A)
-                battr_ref[r, :] = jnp.where(
-                    closer, attr_win, battr_ref[r, :]
-                )
-
-        def group_body(gr, _):
-            if NSUB == 1 and BITMASK_NARROW and not DIAG_NO_NARROW:
-                # bitmask narrow phase: pack "cluster has a candidate"
-                # into one 32-bit scalar (two exact f32 dot halves) and
-                # while-loop over its set bits — the inner loop then
-                # runs EXACTLY visits times instead of GROUP scalar
-                # read+branch iterations per candidate group (deep
-                # tiles visit ~9-38 of 128 clusters; the skipped
-                # iterations were a sizable share of kernel time).
-                # refresh > 1: one candidate mask + counts dot covers
-                # `refresh` groups (pruning refreshes less often — a
-                # candidate superset, still exact).
-                cand = (
-                    hit_geo
-                    & (tn < best_ref[:, 0:1])
-                    & (lane_iota // (GROUP * refresh) == gr)
-                )
-                counts = jax.lax.dot_general(
-                    jnp.swapaxes(ones_col, 0, 1), cand.astype(jnp.float32),
-                    (((1,), (0,)), ((), ())),
-                    preferred_element_type=jnp.float32,
-                )                                            # (1, CHUNK)
-                # EXACT power-of-two weights via integer shifts —
-                # jnp.exp2 is a polynomial approximation (exp2(13) =
-                # 8192.004) and its rounding error corrupts the mask
-                nz = (counts > 0.0).astype(jnp.int32)
-                kk = lane_iota % GROUP
-                pw = jnp.left_shift(jnp.int32(1), kk % 16)
-                for j in range(refresh):
-                    g = gr * refresh + j
-                    in_g = lane_iota // GROUP == g
-                    w_lo = jnp.where(in_g & (kk < 16), pw, 0)
-                    w_hi = jnp.where(in_g & (kk >= 16), pw, 0)
-                    bits_lo = jnp.sum(nz * w_lo)
-                    bits_hi = jnp.sum(nz * w_hi)
-                    bits0 = bits_lo | (bits_hi << 16)
-
-                    def wbody(b, g=g):
-                        k = _bit_index(b & (-b))
-                        _visit(base, g * GROUP + k)
-                        return b & (b - 1)
-
-                    jax.lax.while_loop(lambda b: b != 0, wbody, bits0)
-                return 0
-
-            g = gr  # non-bitmask path: one group per iteration
-            cand = (
-                hit_geo
-                & (tn < best_ref[:, 0:1])
-                & (lane_iota // GROUP == g)
-            )
-            counts_col = jax.lax.dot_general(
-                cand.astype(jnp.float32), sub_sel, (((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )  # (CHUNK, NSUB), nonzero only in this group's rows
-            counts_ref[:, :] = counts_col
-            total = jnp.sum(counts_col)
-
-            if not DIAG_NO_NARROW:
-                @pl.when(total > 0.0)
-                def _():
-                    _sweep_group(base, g)
-
-            return 0
-
-        def _sweep_group(base, g):
-            def inner(k, _):
-                jj = g * GROUP + k
-                # unrolled sub-tiles: each (H, block) narrow pass runs
-                # only when its sub-tile has a candidate ray
-                for s in range(NSUB):
-                    cnt = counts_ref[jj, s]
-
-                    @pl.when(cnt > 0.0)
-                    def _(s=s):
-                        _visit(base, jj, s)
-
-                return 0
-
-            jax.lax.fori_loop(0, GROUP, inner, 0)
-
-        if NSUB == 1 and BITMASK_NARROW and not DIAG_NO_NARROW:
-            jax.lax.fori_loop(0, CHUNK // (GROUP * refresh), group_body, 0)
-        else:
-            assert refresh == 1, "refresh>1 needs the bitmask narrow phase"
-            jax.lax.fori_loop(0, CHUNK // GROUP, group_body, 0)
-        return 0
-
-    jax.lax.fori_loop(0, n_chunks, chunk_body, 0)
-
-    if defer_attr:
-        # one extraction matmul per cluster that ever improved a lane:
-        # prim ids are globally unique (padding rows carry pid -1 and
-        # all-zero attrs), so matching the FINAL best pid against the
-        # cluster's pid row selects exactly each lane's winning
-        # triangle; stale improvers contribute all-zero one-hot rows.
-        best_pid = best_ref[:, 1:2]                      # (tile, 1) f32
-
-        def eloop(i, _):
-            ci = i // (CHUNK // 32)
-            w = i % (CHUNK // 32)
-
-            def ebody(b):
-                k = _bit_index(b & (-b))
-                jj = w * 32 + k
-                cid = order_ref[0, 0, ci * CHUNK + jj]
-                tbase = pl.multiple_of(cid * block, 128)
-                ab = attr_ref[pl.ds(tbase, block), :]
-                if MT_MXU:
-                    mtbase = pl.multiple_of(cid * (4 * block), 512)
-                    pid_blk = mt_ref[10:11, pl.ds(mtbase, block)]
-                else:
-                    pid_blk = tri_ref[9:10, pl.ds(tbase, block)]
-                onehot = (best_pid == pid_blk)           # (tile, block)
-                if ATTR_SPLIT3:
-                    prod = jax.lax.dot_general(
-                        onehot.astype(jnp.bfloat16), ab,
-                        (((1,), (0,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                    )                                    # (tile, 3A)
-                    attr_win = (prod[:, 0:ATTR_ROWS]
-                                + prod[:, ATTR_ROWS:2 * ATTR_ROWS]
-                                + prod[:, 2 * ATTR_ROWS:3 * ATTR_ROWS])
-                else:
-                    attr_win = jax.lax.dot_general(
-                        onehot.astype(jnp.float32), ab,
-                        (((1,), (0,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                        precision=jax.lax.Precision.HIGHEST,
-                    )                                    # (tile, A)
-                battr_ref[:, :] = battr_ref[:, :] + attr_win
-                return b & (b - 1)
-
-            jax.lax.while_loop(lambda b: b != 0, ebody, winners_ref[i])
-            return 0
-
-        jax.lax.fori_loop(0, n_chunks * (CHUNK // 32), eloop, 0)
-
-    if planar_out:
-        # planar (OUT_W, tile) record: consumers slice physically-planar
-        # rows with NO unsort gather (the gather doubled as the only
-        # efficient record->planar converter — reading column slices of
-        # the (N, 48) record straight from HBM measured +35 ms/frame,
-        # scripts/exp_r4b.py).  One in-VMEM transpose per program.
-        rec = jnp.concatenate(
-            [
-                best_ref[:, 0:4],
-                battr_ref[:, :] if want_attr
-                else jnp.zeros((best_ref.shape[0], ATTR_ROWS), jnp.float32),
-            ],
-            axis=1,
-        )                                           # (tile, 4 + ATTR_ROWS)
-        out_ref[0:4 + ATTR_ROWS, :] = jnp.swapaxes(rec, 0, 1)
-        out_ref[4 + ATTR_ROWS:OUT_W, :] = jnp.zeros_like(
-            out_ref[4 + ATTR_ROWS:OUT_W, :]
-        )
-        out_ref[VISITED_COL:VISITED_COL + 1, :] = jnp.broadcast_to(
-            visited_ref[0].astype(jnp.float32), (1, out_ref.shape[1])
-        )
-        out_ref[CHUNKS_COL:CHUNKS_COL + 1, :] = jnp.broadcast_to(
-            visited_ref[1].astype(jnp.float32), (1, out_ref.shape[1])
-        )
-        return
-
-    out_ref[:, 4:OUT_W] = jnp.zeros_like(out_ref[:, 4:OUT_W])
-    out_ref[:, 0:4] = best_ref[:, 0:4]
-    if want_attr:
-        out_ref[:, 4:4 + ATTR_ROWS] = battr_ref[:, :]
-    # diagnostics: clusters visited by this tile's narrow phase; chunks
-    # whose slab sweep ran
-    out_ref[:, VISITED_COL:VISITED_COL + 1] = jnp.broadcast_to(
-        visited_ref[0].astype(jnp.float32), (out_ref.shape[0], 1)
-    )
-    out_ref[:, CHUNKS_COL:CHUNKS_COL + 1] = jnp.broadcast_to(
-        visited_ref[1].astype(jnp.float32), (out_ref.shape[0], 1)
-    )
+    best, prim, bu, bv = jax.lax.fori_loop(0, n_supers, super_body, state)
+    out_ref[0, :] = best
+    out_ref[1, :] = prim
+    out_ref[2, :] = bu
+    out_ref[3, :] = bv
 
 
-def _origin_mt_table(tri, origin):
-    """Precomputed shared-origin MT table (12, C*B) from the cluster tri
-    table [v0 | e1 | e2 | pid | ...] and one origin point (3,).
-
-    Rows: n = e2 x e1 (0:3), s = e2 x T (3:6), q = T x e1 (6:9),
-    pid (9), tconst = e2 . q (10) — with T = origin - v0, the kernel's
-    narrow phase becomes det = d.n, u = d.s, v = d.q, t = tconst (all
-    sign-folded), identical up to rounding to the generic MT."""
-    v0 = tri[0:3]
-    e1 = tri[3:6]
-    e2 = tri[6:9]
-    pid = tri[9:10]
-    tv = origin[:, None] - v0
-
-    def cross(a, b):
-        return jnp.stack([
-            a[1] * b[2] - a[2] * b[1],
-            a[2] * b[0] - a[0] * b[2],
-            a[0] * b[1] - a[1] * b[0],
-        ])
-
-    n = cross(e2, e1)
-    s = cross(e2, tv)
-    q = cross(tv, e1)
-    tconst = jnp.sum(e2 * q, axis=0, keepdims=True)
-    pad = jnp.zeros((1, tri.shape[1]), jnp.float32)
-    return jnp.concatenate([n, s, q, pid, tconst, pad], axis=0)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("n_clusters", "block", "want_attr", "interpret", "tile",
-                     "planar_out", "planar_in", "origin_mt", "refresh"),
-)
-def _run_kernel(rays, cb_sorted, sb_sorted, order_t, tri, attr, mt,
-                n_clusters: int, block: int, want_attr: bool,
-                interpret: bool, tile: int = TILE, planar_out: bool = False,
-                planar_in: bool = False, origin_mt: bool = False,
-                refresh: int = REFRESH):
-    # the narrow phase slices tri_ref at cid*block with a multiple_of(128)
-    # hint; a block below 128 would misalign the slice and read the wrong
-    # triangles (measured: BLOCK=64 silently changes the render —
-    # scripts/exp_r3k.py)
-    assert block % 128 == 0, f"cluster block must be 128-aligned, got {block}"
-    assert tile % NSUB == 0 and (tile // NSUB) % 8 == 0, (tile, NSUB)
-    n_pad = rays.shape[1] if planar_in else rays.shape[0]
-    grid = n_pad // tile
-    n_supers_pad = int(sb_sorted.shape[2])
-    # shared-order mode: bounds/order arrays have a leading dim of 1 and
-    # every program reads block 0 — no per-tile permuted copies in HBM
-    shared = int(cb_sorted.shape[0]) == 1
-    bmap = (lambda i: (0, 0, 0)) if shared else (lambda i: (i, 0, 0))
-    scratch = [
-        pltpu.VMEM((tile, 8), jnp.float32),        # best
-        pltpu.VMEM((tile, ATTR_ROWS), jnp.float32),  # best attr
-        pltpu.VMEM((CHUNK, NSUB), jnp.float32),    # per-sub-tile counts
-        pltpu.VMEM((n_supers_pad, 1), jnp.float32),  # supercluster counts
-        pltpu.SMEM((max(n_clusters // CHUNK, 1),),
-                   jnp.float32),                   # per-chunk min entry t
-        pltpu.SMEM((2,), jnp.int32),               # visited/chunks counters
-        pltpu.SMEM((max((n_clusters // CHUNK) * (CHUNK // 32), 1),),
-                   jnp.int32),                     # DEFER_ATTR winner bits
-    ]
-    if planar_out:
-        out_spec = pl.BlockSpec((OUT_W, tile), lambda i: (0, i),
-                                memory_space=pltpu.VMEM)
-        out_shape = jax.ShapeDtypeStruct((OUT_W, n_pad), jnp.float32)
-    else:
-        out_spec = pl.BlockSpec((tile, OUT_W), lambda i: (i, 0),
-                                memory_space=pltpu.VMEM)
-        out_shape = jax.ShapeDtypeStruct((n_pad, OUT_W), jnp.float32)
+@functools.partial(jax.jit, static_argnames=("block", "interpret"))
+def _run_kernel(rays, order, sb, cb, tri, block: int, interpret: bool):
+    """rays (8, n) with n a multiple of TILE -> (OUT_ROWS, n) records."""
+    n = rays.shape[1]
+    assert n % TILE == 0, (n, TILE)
+    assert block % UNROLL == 0, (block, UNROLL)
+    n_supers = int(sb.shape[1])
+    per_block_order = int(order.shape[0]) > 1
+    whole = pl.no_block_spec
     return pl.pallas_call(
-        functools.partial(
-            _kernel, n_clusters=n_clusters, n_supers_pad=n_supers_pad,
-            block=block, want_attr=want_attr, planar_out=planar_out,
-            planar_in=planar_in, origin_mt=origin_mt, refresh=refresh,
-        ),
-        grid=(grid,),
-        in_specs=[
-            pl.BlockSpec((8, tile), lambda i: (0, i), memory_space=pltpu.VMEM)
-            if planar_in else
-            pl.BlockSpec((tile, 8), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (1, 8, n_clusters), bmap, memory_space=pltpu.VMEM
-            ),
-            pl.BlockSpec(
-                (1, 8, n_supers_pad), bmap,
-                memory_space=pltpu.VMEM,
-            ),
-            pl.BlockSpec(
-                (1, 1, n_clusters), bmap, memory_space=pltpu.SMEM
-            ),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_spec,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
+        functools.partial(_kernel, n_supers=n_supers, block=block,
+                          per_block_order=per_block_order),
+        grid=(n // TILE,),
+        in_specs=[pl.BlockSpec((8, TILE), lambda i: (0, i)),
+                  whole, whole, whole, whole],
+        out_specs=pl.BlockSpec((OUT_ROWS, TILE), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((OUT_ROWS, n), jnp.float32),
+        compiler_params=pl_triton.CompilerParams(num_warps=NUM_WARPS,
+                                                 num_stages=1),
+        backend="triton",
         interpret=interpret,
-    )(rays, cb_sorted, sb_sorted, order_t, tri, attr, mt)
+        name="cluster_trace",
+    )(rays, order, sb, cb, tri)
 
 
 def _coherence_key(scene, o, d):
-    """Sort key restoring ray-tile spatial coherence: origin-major,
+    """Sort key restoring ray-block spatial coherence: origin-major,
     direction-minor morton mix.  Bounced wavefronts are incoherent;
     sorting groups rays that will enter the same clusters into the same
-    tile (and parks terminated rays — origins far outside — into
-    all-dead tiles that cost nothing).  The direction bits matter most
+    block (and parks terminated rays — origins far outside — into
+    all-dead blocks that cost nothing).  The direction bits matter most
     for camera rays: all share one origin, and without them the sort
-    degenerates to scanline order whose 1024-ray tiles are two full
-    image rows — a frustum crossing the whole scene."""
+    degenerates to scanline order."""
     from ti_raytrace_tpu.utils.morton import morton3d
 
     lo = scene.aabb_min
@@ -831,110 +193,33 @@ def _coherence_key(scene, o, d):
     return code_o, code_d
 
 
-def _tile_order(rays, n_tiles, cb, n_clusters, tile: int = TILE):
-    """Per-tile front-to-back cluster order + permuted bounds.
-
-    For each tile: order superclusters (GROUP consecutive clusters, which
-    are spatially adjacent by median-split construction) by point-to-box
-    distance from the tile's mean origin — a conservative front-to-back
-    order for every ray in the tile, at a GROUP-times smaller
-    sort/permutation cost than per-cluster ordering (the in-kernel
-    candidate refresh runs
-    at GROUP granularity anyway).  Returns (order (n_tiles, 1, C) int32,
-    cb_sorted (n_tiles, 8, C), sb_sorted (n_tiles, 8, S_pad) supercluster
-    bounds in the same per-tile order, validity in row 6)."""
-    org = rays[:, 0:3].reshape(n_tiles, tile, 3)
-    cent = jnp.mean(org, axis=1)                                   # (T,3)
-    return _tile_order_from_cent(cent, cb, n_clusters)
+def _super_bounds(cb):
+    """(8, S) supercluster boxes: the union of each run of GROUP
+    consecutive clusters (spatially adjacent by median-split
+    construction), validity in row 6."""
+    S = cb.shape[1] // GROUP
+    bmin = cb[0:3].reshape(3, S, GROUP).min(axis=2)
+    bmax = cb[3:6].reshape(3, S, GROUP).max(axis=2)
+    valid = cb[6].reshape(S, GROUP).max(axis=1)
+    return jnp.concatenate(
+        [bmin, bmax, valid[None], jnp.zeros((1, S), jnp.float32)], 0)
 
 
-def _tile_order_from_cent(cent, cb, n_clusters):
-    """Core of _tile_order, from per-tile mean origins (T, 3) directly
-    (planar-wavefront callers compute cent without an (N, 8) rays
-    array)."""
-    n_tiles = cent.shape[0]
-    S = n_clusters // GROUP  # superclusters: GROUP consecutive clusters
-    S_pad = ((S + CHUNK - 1) // CHUNK) * CHUNK
-    bmin = cb[0:3, :n_clusters].T.reshape(S, GROUP, 3).min(axis=1)  # (S,3)
-    bmax = cb[3:6, :n_clusters].T.reshape(S, GROUP, 3).max(axis=1)
-    valid = cb[6, :n_clusters].reshape(S, GROUP).max(axis=1)       # (S,)
-    p = jnp.clip(cent[:, None, :], bmin[None], bmax[None])
-    dist = jnp.sum((p - cent[:, None, :]) ** 2, axis=-1)           # (T,S)
-    order_s = jnp.argsort(dist, axis=1).astype(jnp.int32)          # (T,S)
-    order = (
-        order_s[:, :, None] * GROUP
-        + jnp.arange(GROUP, dtype=jnp.int32)[None, None, :]
-    ).reshape(n_tiles, n_clusters)
-    cb_r = cb.reshape(8, S, GROUP)
-    cb_sorted = jnp.take(cb_r, order_s, axis=1)                    # (8,T,S,G)
-    cb_sorted = jnp.moveaxis(cb_sorted, 1, 0).reshape(n_tiles, 8, n_clusters)
-    sb = jnp.concatenate(
-        [bmin.T, bmax.T, valid[None, :], jnp.zeros((1, S), jnp.float32)], 0
-    )                                                              # (8,S)
-    sb_sorted = jnp.take(sb, order_s, axis=1)                      # (8,T,S)
-    sb_sorted = jnp.moveaxis(sb_sorted, 1, 0)                      # (T,8,S)
-    sb_sorted = jnp.pad(sb_sorted, ((0, 0), (0, 0), (0, S_pad - S)))
-    # (n_tiles, 1, C): the extra axis satisfies the TPU block-shape rule
-    # (last two block dims must equal the array dims)
-    return order[:, None, :], cb_sorted, sb_sorted
+def _front_to_back(sb, cent):
+    """(T, S) supercluster order for each of T reference points (T, 3):
+    by point-to-box distance, a conservative front-to-back order for
+    rays starting near the point."""
+    p = jnp.clip(cent[:, None, :], sb[0:3].T[None], sb[3:6].T[None])
+    dist = jnp.sum((p - cent[:, None, :]) ** 2, axis=-1)
+    return jnp.argsort(dist, axis=1).astype(jnp.int32)
 
 
-def _point_order(cb, n_clusters, origin):
-    """Shared front-to-back order from ONE origin point (3,).
-
-    Pinhole camera wavefronts share their origin exactly, so every
-    tile's front-to-back supercluster order is identical — one shared
-    (1, 8, C) bounds copy (kernel bmap block 0 for all programs) instead
-    of the per-tile argsort + permuted-bounds materialization
-    (~29 MB/frame on the 100k bench)."""
-    S = n_clusters // GROUP
-    S_pad = ((S + CHUNK - 1) // CHUNK) * CHUNK
-    bmin = cb[0:3, :n_clusters].T.reshape(S, GROUP, 3).min(axis=1)
-    bmax = cb[3:6, :n_clusters].T.reshape(S, GROUP, 3).max(axis=1)
-    valid = cb[6, :n_clusters].reshape(S, GROUP).max(axis=1)
-    p = jnp.clip(origin[None, :], bmin, bmax)                      # (S,3)
-    dist = jnp.sum((p - origin[None, :]) ** 2, axis=-1)            # (S,)
-    order_s = jnp.argsort(dist).astype(jnp.int32)
-    order = (
-        order_s[:, None] * GROUP + jnp.arange(GROUP, dtype=jnp.int32)[None, :]
-    ).reshape(n_clusters)
-    cb_r = cb.reshape(8, S, GROUP)
-    cb_sorted = jnp.take(cb_r, order_s, axis=1).reshape(8, n_clusters)
-    sb = jnp.concatenate(
-        [bmin.T, bmax.T, valid[None, :], jnp.zeros((1, S), jnp.float32)], 0
-    )
-    sb_sorted = jnp.take(sb, order_s, axis=1)
-    sb_sorted = jnp.pad(sb_sorted, ((0, 0), (0, S_pad - S)))
-    return order[None, None, :], cb_sorted[None], sb_sorted[None]
-
-
-def _static_order(cb, n_clusters):
-    """Trivial ordering: clusters in their static median-split order,
-    ONE shared copy for every tile (leading dim 1 — _run_kernel maps all
-    programs to block 0).  No argsort, no permutation gathers — the
-    per-ray (tn < best_t) pruning still works, just without the
-    front-to-back guarantee."""
-    S = n_clusters // GROUP
-    S_pad = ((S + CHUNK - 1) // CHUNK) * CHUNK
-    order = jnp.arange(n_clusters, dtype=jnp.int32)[None, None, :]
-    cb_sorted = cb[None]
-    bmin = cb[0:3, :n_clusters].T.reshape(S, GROUP, 3).min(axis=1)
-    bmax = cb[3:6, :n_clusters].T.reshape(S, GROUP, 3).max(axis=1)
-    valid = cb[6, :n_clusters].reshape(S, GROUP).max(axis=1)
-    sb = jnp.concatenate(
-        [bmin.T, bmax.T, valid[None, :], jnp.zeros((1, S), jnp.float32)], 0
-    )
-    sb = jnp.pad(sb, ((0, 0), (0, S_pad - S)))
-    return order, cb_sorted, sb[None]
-
-
-def capacity_lanes(N: int, cap_frac: float, tile: int = None) -> int:
+def capacity_lanes(N: int, cap_frac: float) -> int:
     """Static kernel capacity for an `active`-masked trace: cap_frac of
-    N rounded UP to a whole tile (callers use this to count overflow
-    kills with the exact same rounding the tracer applies)."""
-    t = tile or TILE
-    n_pad = ((N + t - 1) // t) * t
-    return min(n_pad, max(t, ((int(N * cap_frac) + t - 1) // t) * t))
+    N rounded UP to a whole ray block (callers use this to count
+    overflow kills with the exact same rounding the tracer applies)."""
+    n_pad = ((N + TILE - 1) // TILE) * TILE
+    return min(n_pad, max(TILE, ((int(N * cap_frac) + TILE - 1) // TILE) * TILE))
 
 
 def trace_clustered(
@@ -945,193 +230,99 @@ def trace_clustered(
     """Closest hit via the cluster kernel + dense analytic-shape tail.
 
     o, d: planar (3, N).  Returns (t, prim, uv_bary (2,N)) or, with
-    want_attr, (t, prim, uv_bary, attr (A,N)).
+    want_attr, (t, prim, uv_bary, attr (A,N)) where attr is
+    scene.prim_attr[:, prim] (zeros on a miss).
+
+    sort_rays: morton-sort the wavefront into coherent ray blocks (and
+    unsort the result); skipped below SMALL_WAVEFRONT lanes unless
+    sort_small.  tile_order: a presorted wavefront still gets a per-block
+    front-to-back cluster order.  shared_origin: (3,) common origin of
+    every ray (pinhole camera) — one shared front-to-back order.
 
     tmax: optional (N,) per-lane upper bound on the hit distance (shadow
     rays know their target distance).  Hits at t >= tmax are reported as
     misses (t = INF, prim = -1); hits below it are the exact closest
-    hit.  Seeding best_t at the bound prunes every cluster beyond the
-    target before the first narrow-phase visit.  Lanes with tmax <= 0
-    are unbounded.
+    hit.  Lanes with tmax <= 0 are unbounded.
 
-    active + cap_frac: occupancy compaction for sparse wavefronts (BDPT
-    shadow strategies run ~55% parked lanes whose only cost is the
-    per-lane kernel floor — sort, slab sweep, I/O).  Inactive lanes take
-    the PADDING sort key (0xFFFFFFFF > any 30-bit morton key), so the
-    stable coherence sort packs active lanes into a prefix; the kernel
-    grid covers only capacity_lanes(N, cap_frac) lanes and everything
-    beyond unsorts as a miss.  Inactive lanes report miss by
-    construction.  Active lanes beyond capacity are CUT (reported as
-    misses) — callers must size cap_frac with measured headroom and
-    count kills via capacity_lanes (PT's compaction-overflow
-    discipline: production schedules run at 0 kills).  Requires the
-    sorted path (ignored for small unsorted wavefronts).
+    active + cap_frac: occupancy compaction for sparse wavefronts.
+    Inactive lanes report a miss.  With the sorted path, inactive lanes
+    take the padding sort key, so active lanes pack into a prefix and the
+    kernel grid covers only capacity_lanes(N, cap_frac) lanes; active
+    lanes beyond capacity are CUT (reported as misses) — callers size
+    cap_frac with headroom and count kills via capacity_lanes.
     """
     N = o.shape[1]
-    # small wavefronts run FEWER, WIDER programs (see TILE_WIDE above)
-    tile = TILE_WIDE if N <= TILE_WIDE_CUTOFF else TILE
-    n_pad = ((N + tile - 1) // tile) * tile
-
-    # Small wavefronts (BDPT walks/connections trace dozens of ~10k-lane
-    # wavefronts per frame) skip the coherence sort AND the per-tile
-    # ordering: the sort/argsort instances dominate both compile time and
-    # runtime at that scale, while the kernel's per-ray pruning still
-    # works under the static median-split cluster order.  PT's COMPACTED
-    # deep phases are the exception (sort_small=True): those lanes are
-    # maximally incoherent survivors, and sorting + per-tile ordering
-    # them measured 131 -> 119 ms on the 100k frame (scripts/exp_r3h.py).
+    n_pad = ((N + TILE - 1) // TILE) * TILE
     if N <= SMALL_WAVEFRONT and not sort_small:
+        # small wavefronts (BDPT walks/connections): the sort and the
+        # per-block ordering cost more than they save
         sort_rays = False
 
     cap = None
     if active is not None and cap_frac is not None and sort_rays:
-        cap = capacity_lanes(N, cap_frac, tile)
+        cap = capacity_lanes(N, cap_frac)
         if cap >= n_pad:
-            cap = None  # capacity covers everything: plain sorted trace
+            cap = None
+
+    if active is not None:
+        # zero direction = dead lane: best t starts at 0 in the kernel
+        d = d * active[None, :].astype(d.dtype)
+    row6 = tmax[None] if tmax is not None else jnp.zeros((1, N), jnp.float32)
+    rays = jnp.concatenate([o, d, row6, jnp.zeros((1, N), jnp.float32)], 0)
+    rays = jnp.pad(rays, ((0, 0), (0, n_pad - N)))
 
     if sort_rays:
-        # row-record rays, built once and permuted by the coherence sort.
-        # padding rays: direction 0 -> safe_inv makes them miss everything
-        rays = jnp.zeros((n_pad, 8), jnp.float32)
-        rays = rays.at[:N, 0:3].set(jnp.swapaxes(o, 0, 1))
-        d_rows = jnp.swapaxes(d, 0, 1)
-        if active is not None:
-            # inactive lanes get a zero direction -> safe_inv misses
-            # everything: the miss contract holds no matter what ray
-            # data parked lanes carry (they may land inside capacity
-            # when occupancy is below it)
-            d_rows = d_rows * active[:, None]
-        rays = rays.at[:N, 3:6].set(d_rows)
-        if tmax is not None:
-            rays = rays.at[:N, 6].set(tmax)
         key_o, key_d = _coherence_key(scene, o, d)
         if active is not None:
             # parked lanes sort with the padding (morton keys are 30-bit,
             # 0xFFFFFFFF is reserved): actives pack into a dense prefix
             key_o = jnp.where(active, key_o, jnp.uint32(0xFFFFFFFF))
             key_d = jnp.where(active, key_d, jnp.uint32(0xFFFFFFFF))
-        key_o = jnp.pad(key_o, (0, n_pad - N), constant_values=jnp.uint32(0xFFFFFFFF))
-        key_d = jnp.pad(key_d, (0, n_pad - N), constant_values=jnp.uint32(0xFFFFFFFF))
+        pad = (0, n_pad - N)
+        key_o = jnp.pad(key_o, pad, constant_values=jnp.uint32(0xFFFFFFFF))
+        key_d = jnp.pad(key_d, pad, constant_values=jnp.uint32(0xFFFFFFFF))
         idx = jnp.arange(n_pad, dtype=jnp.int32)
-        _, _, order = jax.lax.sort((key_o, key_d, idx), num_keys=2, is_stable=True)
-        rays = jnp.take(rays, order, axis=0)
+        _, _, order = jax.lax.sort((key_o, key_d, idx), num_keys=2,
+                                   is_stable=True)
+        rays = jnp.take(rays, order, axis=1)
         if cap is not None:
-            # actives sort strictly before parked/padding lanes (30-bit
-            # morton keys < the reserved 0xFFFFFFFF), so the first `cap`
-            # rows hold every active lane up to capacity; the kernel grid
-            # covers only these, and the cut tail unsorts as misses below
-            rays = rays[:cap]
-    else:
-        # PLANAR (8, n_pad) rays: a pure concat of the caller's planar
-        # wavefront.  The (N, 8) record operand here couples the pallas
-        # call's forced row-major layout to the planar o/d and flips the
-        # whole bounce body lane-major (+35 ms/frame, scripts/exp_r4b/c)
-        # — the kernel transposes each (8, tile) block instead.
-        pad = ((0, 0), (0, n_pad - N))
-        row6 = (jnp.pad(tmax[None], pad) if tmax is not None
-                else jnp.zeros((1, n_pad), jnp.float32))
-        rays = jnp.concatenate(
-            [jnp.pad(o, pad), jnp.pad(d, pad), row6,
-             jnp.zeros((1, n_pad), jnp.float32)],
-            axis=0,
-        )
+            rays = rays[:, :cap]
 
     cb = scene.cluster_bounds
     tri = scene.cluster_tri
-    attr = scene.cluster_attr3 if ATTR_SPLIT3 else scene.cluster_attr
-    if ATTR_SPLIT3:
-        assert attr.shape[0] > 0, (
-            "ATTR_SPLIT3 enabled but the scene holds the placeholder "
-            "split table — rebuild the scene with the flag on "
-            "(scene/data.device_scene gates its construction)"
-        )
     n_clusters = int(cb.shape[1])
     block = int(tri.shape[1]) // n_clusters
+    sb = _super_bounds(cb)
 
-    n_run = cap if cap is not None else n_pad
-    n_tiles = n_run // tile
-    if shared_origin is not None and PER_TILE_ORDER:
-        # single-origin wavefront (camera rays): one shared front-to-back
-        # order.  Ray-independent, so it applies even with
-        # sort_rays=False (statically morton-ordered camera wavefronts
-        # keep the front-to-back pruning without any sort/unsort —
-        # the r2 "reshape-only tiling" loss came from falling back to
-        # _static_order here, not from the tiling itself).
-        order_t, cb_sorted, sb_sorted = _point_order(cb, n_clusters,
-                                                     shared_origin)
-    elif (not sort_rays and not tile_order) or not PER_TILE_ORDER:
-        order_t, cb_sorted, sb_sorted = _static_order(cb, n_clusters)
-    elif sort_rays:
-        order_t, cb_sorted, sb_sorted = _tile_order(rays, n_tiles, cb,
-                                                    n_clusters, tile)
+    n_run = rays.shape[1]
+    if shared_origin is not None:
+        # single-origin wavefront (camera rays): one shared order,
+        # whether or not the lanes are sorted
+        cluster_order = _front_to_back(sb, shared_origin[None])
+    elif sort_rays or tile_order:
+        # per-block order from each block's mean origin (padding zeros
+        # only skew the last partial block's heuristic order; pruning
+        # stays exact)
+        cent = rays[0:3].reshape(3, n_run // TILE, TILE).mean(axis=2).T
+        cluster_order = _front_to_back(sb, cent)
     else:
-        # per-tile front-to-back order for a presorted planar wavefront
-        # (pt_rgb._sort_carry + tile_order=True): tile centroids straight
-        # from the planar origin rows (padding zeros only skew the last
-        # partial tile's heuristic order; pruning stays exact)
-        cent = jnp.swapaxes(
-            rays[0:3].reshape(3, n_tiles, tile).mean(axis=2), 0, 1
-        )
-        order_t, cb_sorted, sb_sorted = _tile_order_from_cent(cent, cb,
-                                                              n_clusters)
+        cluster_order = jnp.arange(sb.shape[1], dtype=jnp.int32)[None]
 
-    # with the VPU narrow phase the matmul table must NOT ride along as a
-    # kernel input: full-array inputs are VMEM-resident (~29 MB on the
-    # 100k scene) whether read or not
-    mt = scene.cluster_mt if MT_MXU else scene.cluster_mt[:, :4 * block]
-    origin_mt = (ORIGIN_MT and shared_origin is not None and not MT_MXU)
-    if origin_mt:
-        tri = _origin_mt_table(tri, shared_origin)
-    # refresh period clamped to the chunk count: on single-chunk scenes
-    # a whole-chunk refresh derives every candidate from best = INF and
-    # disables per-ray front-to-back pruning (see the REFRESH note).
-    # MUST also divide CHUNK // GROUP: the group loop runs
-    # CHUNK // (GROUP * refresh) iterations, and a non-divisor (e.g. 3
-    # on a 3-chunk scene) floors that bound so the tail groups of every
-    # chunk are never intersection-tested — silent dropped geometry
-    # (reproduced: 40k-tri scene, 18/174 oracle hits lost).  And the
-    # non-bitmask narrow phase has no multi-group candidate mask at all,
-    # so it requires refresh == 1.
-    if NSUB == 1 and BITMASK_NARROW and not DIAG_NO_NARROW:
-        n_groups = CHUNK // GROUP
-        refresh = max(1, min(REFRESH, n_clusters // CHUNK, n_groups))
-        while n_groups % refresh:
-            refresh -= 1
-    else:
-        refresh = 1
-    out = _run_kernel(
-        rays, cb_sorted, sb_sorted, order_t, tri, attr, mt,
-        n_clusters, block, want_attr, interpret, tile,
-        planar_out=not sort_rays, planar_in=not sort_rays,
-        origin_mt=origin_mt, refresh=refresh,
-    )
+    out = _run_kernel(rays, cluster_order, sb, cb, tri, block, interpret)
     if sort_rays:
-        inv = jnp.zeros((n_pad,), jnp.int32).at[order].set(
-            jnp.arange(n_pad, dtype=jnp.int32)
-        )
-        if not want_attr:
-            out = out[:, 0:4]  # unsort-gather only what the caller reads
         if cap is not None:
-            # lanes beyond capacity (parked, plus any overflow kills the
-            # caller accounts for) unsort as misses.  t = 0 (not INF) so
+            # lanes beyond capacity unsort as misses.  t = 0 (not INF) so
             # the analytic-shape tail below can't resurrect a cut lane
             # with a sphere-only hit; the final miss restore reports INF
-            miss = jnp.zeros((n_pad - cap, out.shape[1]), out.dtype)
-            miss = miss.at[:, 1].set(-1.0)
-            out = jnp.concatenate([out, miss], axis=0)
-        out = jnp.take(out, inv, axis=0)
-        t = out[:N, 0]
-        prim = out[:N, 1].astype(jnp.int32)
-        uv = jnp.swapaxes(out[:N, 2:4], 0, 1)
-        attr_out = (jnp.swapaxes(out[:N, 4:4 + ATTR_ROWS], 0, 1)
-                    if want_attr else None)
-    else:
-        # planar kernel record: consumers slice rows, no unsort gather
-        # and no layout conversion anywhere (see _kernel planar_out)
-        t = out[0, :N]
-        prim = out[1, :N].astype(jnp.int32)
-        uv = out[2:4, :N]
-        attr_out = out[4:4 + ATTR_ROWS, :N] if want_attr else None
+            miss = jnp.zeros((OUT_ROWS, n_pad - cap), out.dtype)
+            miss = miss.at[1].set(-1.0)
+            out = jnp.concatenate([out, miss], axis=1)
+        inv = jnp.zeros((n_pad,), jnp.int32).at[order].set(
+            jnp.arange(n_pad, dtype=jnp.int32))
+        out = jnp.take(out, inv, axis=1)
+    t = out[0, :N]
+    prim = out[1, :N].astype(jnp.int32)
+    uv = out[2:4, :N]
 
     # analytic shapes: dense tail over the (few) PRIM_SHAPE prims
     P = scene.n_prims
@@ -1156,23 +347,18 @@ def trace_clustered(
             (stype == C.SHAPE_SPHERE) & (disc2 < radius * radius) & (ts > 0.0) & (ts < t)
         )
         if active is not None:
-            # this dense tail sees the caller's raw rays — parked lanes
-            # must stay misses here too
             hit = hit & active
         t = jnp.where(hit, ts, t)
         prim = jnp.where(hit, pid, prim)
         uv = jnp.where(hit[None, :], 0.0, uv)
-        if want_attr:
-            # static pid -> a plain column slice, not a gather
-            attr_out = jnp.where(hit[None, :], scene.prim_attr[:, pid][:, None],
-                                 attr_out)
 
-    if tmax is not None or cap is not None:
+    if tmax is not None or active is not None:
         # restore the miss contract: bounded lanes whose closest hit lay
-        # beyond tmax carry t == tmax with prim == -1 (and capacity-cut
-        # lanes carry t == 0); report t = INF
+        # beyond tmax carry t == tmax with prim == -1, dead and cut lanes
+        # carry t == 0; report t = INF
         t = jnp.where(prim < 0, C.INF, t)
 
     if want_attr:
-        return t, prim, uv, attr_out
+        attr = jnp.take(scene.prim_attr, jnp.maximum(prim, 0), axis=1)
+        return t, prim, uv, jnp.where(prim[None] >= 0, attr, 0.0)
     return t, prim, uv

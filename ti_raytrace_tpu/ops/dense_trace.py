@@ -1,19 +1,19 @@
-"""Dense planar tracer + one-hot (MXU) shading-attribute extraction.
+"""Dense planar tracer + one-hot shading-attribute extraction.
 
-On TPU, pointer-chasing BVH traversal is gather-bound (~2.4 ms per
-wavefront gather regardless of table size — measured), while dense
-Möller-Trumbore in planar layout runs at ~10 Gtest/s of pure VPU code.
-For scenes up to a few thousand primitives the dense sweep beats the
-gather BVH by >100x, so it is the production tracer for small scenes
-(`ti_raytrace_tpu.accel.trace` dispatches on the static primitive count).
+Every lane is tested against every primitive, in blocks of BLOCK
+primitives: dense Möller-Trumbore in planar layout, no pointer chasing.
+For scenes up to a few thousand primitives this is the production tracer
+(`ti_raytrace_tpu.accel.trace` dispatches on the static primitive count;
+the cut-over was chosen on the previous accelerator and has not been
+measured on the GPU).
 
-The second trick: the winning primitive's shading data (normals, uvs,
-material, emitter info — a 32-float column of scene.prim_attr) is
-extracted with a one-hot matmul, (32, B) @ (B, N) on the MXU, instead of
-a gather.  A full hit record costs one tiny matmul per 128-prim block.
+The winning primitive's shading data (normals, uvs, material, emitter
+info — a column of scene.prim_attr) is extracted with a one-hot matmul,
+(A, B) @ (B, N) at Precision.HIGHEST, instead of a gather: one small
+matmul per primitive block.
 
-All wavefront tensors are planar: rays are (3, N), attributes (32, N),
-with the wavefront on the 128-wide lane axis.
+All wavefront tensors are planar: rays are (3, N), attributes (A, N),
+with the wavefront on the minor axis.
 """
 
 import jax
@@ -151,8 +151,7 @@ def _sweep(scene, o, d, want_uv: bool):
     N = o.shape[1]
     P = scene.n_prims
     A = scene.prim_attr.shape[0]
-    # block rows live on the sublane axis; 128 rows schedules best on the
-    # VPU even for tiny scenes (smaller blocks measured slower)
+    # one fixed block size for every scene (not yet tuned on the GPU)
     blk_rows = BLOCK
     with_shapes = scene_has_shapes(scene)
     n_blocks = (P + blk_rows - 1) // blk_rows
@@ -201,7 +200,8 @@ def _sweep(scene, o, d, want_uv: bool):
             u_win = jnp.sum(u * oh_f, axis=0)
             v_win = jnp.sum(v * oh_f, axis=0)
             best_uv = jnp.where(closer[None, :], jnp.stack([u_win, v_win]), best_uv)
-            # HIGHEST: default bf16 MXU passes would round the attrs
+            # HIGHEST: a reduced-precision (bf16/TF32) product would
+            # round the attrs
             attr_blk = jnp.dot(
                 jax.lax.dynamic_slice_in_dim(attr_pad, p0, blk_rows, axis=1),
                 oh_f,

@@ -1,8 +1,8 @@
 """Planar (structure-of-arrays) wavefront math.
 
-TPU layout rule: the minor-most axis maps to the 128-wide vector lanes.
-A wavefront of N 3-vectors stored (N, 3) wastes 125/128 of every VPU op;
-stored (3, N) every component row is a perfectly tiled (N,) vector.  This
+Layout rule: the wavefront lives on the minor-most axis.  Stored (3, N),
+every component row is a contiguous (N,) vector (coalesced loads, no
+stride-3 access).  This
 module is the planar twin of utils/vec.py and is what the hot render loop
 uses; 3-vectors are jnp arrays of shape (3, ...) with components on axis 0.
 """

@@ -83,7 +83,7 @@ def render_frame_sharded(render_paths_fn, scene, spec, cam, frame, key, mesh: Me
 def render_frame_spec_sharded(scene, sdata, spec, cam, frame, key,
                               mesh: Mesh, compaction=None, max_depth=None):
     """One hero-wavelength spectral PT frame over the mesh
-    (pt_spec.trace_paths_spec per lane shard; VERDICT r3 #3).
+    (pt_spec.trace_paths_spec per lane shard).
 
     Same discipline as render_frame_sharded: scene + spectral tables
     replicated, wavefront sharded along lanes, zero collectives (the
@@ -122,7 +122,7 @@ def render_bdpt_spec_frame_sharded(scene, spec, cam, frame, key, mesh: Mesh,
                                    emitter_scale: float = 1.0,
                                    strategies=None, max_depth=None):
     """One single-wavelength spectral BDPT frame over the mesh
-    (bdpt_spec's machinery under shard_map; VERDICT r3 #3).
+    (bdpt_spec's machinery under shard_map).
 
     Identical structure to render_bdpt_frame_sharded — eye pixels
     sharded, light splats psum-reduced — with a per-shard SpecCtx drawn

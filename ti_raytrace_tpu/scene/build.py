@@ -14,7 +14,7 @@ from ti_raytrace_tpu.accel.lbvh import build_bvh
 # cluster packing (accel/clusters.py), attr pack rows (scene/packs.py).
 # Bump on ANY change to those layouts — examples/scenes.benchmark_100k
 # keys its on-disk scene cache by this constant.
-BUILD_FORMAT_VERSION = 4  # v4: cluster_mt matmul-form narrow-phase table
+BUILD_FORMAT_VERSION = 6  # v6: 32-tri clusters, 10-row triangle table
 from ti_raytrace_tpu.core import constants as C
 from ti_raytrace_tpu.io.image import read_image
 from ti_raytrace_tpu.io.obj import load_obj

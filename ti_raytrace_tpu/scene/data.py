@@ -1,6 +1,6 @@
 """Scene representation: a frozen pytree of SoA `jnp` arrays.
 
-This is the TPU-native replacement for the reference's Taichi dense fields
+This is the array-native replacement for the reference's Taichi dense fields
 (Scene.py:36-45 + SceneData.py record layouts).  Differences by design:
 
   * Typed, named arrays instead of float lanes with getter functions
@@ -72,15 +72,7 @@ class SceneData(NamedTuple):
 
     # --- cluster acceleration (see accel/clusters.py) ----------------
     cluster_bounds: jnp.ndarray  # (8, C) f32 cluster AABBs
-    cluster_tri: jnp.ndarray     # (12, C*B) f32 planar triangle blocks
-    cluster_attr: jnp.ndarray    # (C*B, A) f32 prim_attr in cluster order
-    cluster_mt: jnp.ndarray      # (16, C*4B) f32 matmul-form MT table
-    cluster_attr3: jnp.ndarray   # (C*B, 3A) bf16 [a1|a2|a3] split of
-    #   cluster_attr: a1+a2+a3 == cluster_attr EXACTLY (3x8 significand
-    #   bits cover f32's 24), so the kernel's one-hot attr extraction
-    #   runs ONE default-precision bf16 MXU pass instead of HIGHEST's 6
-    #   (ops/cluster_trace.ATTR_SPLIT3).  Derived in device_scene — not
-    #   part of the host npz cache format.
+    cluster_tri: jnp.ndarray     # (10, C*B) f32 planar triangle blocks
 
     # --- global ------------------------------------------------------
     aabb_min: jnp.ndarray      # (3,) f32 scene bounds
@@ -101,27 +93,6 @@ class SceneData(NamedTuple):
     @property
     def n_nodes(self) -> int:
         return int(self.bvh_prim.shape[0])
-
-
-def _attr_split3(attr: np.ndarray) -> np.ndarray:
-    """Exact bf16x3 decomposition of the f32 attr table, columns
-    [a1 | a2 | a3] with a1+a2+a3 == attr bit for bit (verified by
-    tests/test_cluster.py::test_attr_split3_exact)."""
-    import ml_dtypes
-
-    bf = ml_dtypes.bfloat16
-    a = np.asarray(attr, np.float32)
-    a1 = a.astype(bf)
-    r1 = a - a1.astype(np.float32)
-    a2 = r1.astype(bf)
-    a3 = (r1 - a2.astype(np.float32)).astype(bf)
-    return np.concatenate([a1, a2, a3], axis=1)
-
-
-def _attr_split3_enabled() -> bool:
-    from ti_raytrace_tpu.ops.cluster_trace import ATTR_SPLIT3
-
-    return bool(ATTR_SPLIT3)
 
 
 def device_scene(host: dict) -> SceneData:
@@ -159,18 +130,6 @@ def device_scene(host: dict) -> SceneData:
         light_attr=arr(host["light_attr"], jnp.float32),
         cluster_bounds=arr(host["cluster_bounds"], jnp.float32),
         cluster_tri=arr(host["cluster_tri"], jnp.float32),
-        cluster_attr=arr(host["cluster_attr"], jnp.float32),
-        cluster_mt=arr(host["cluster_mt"], jnp.float32),
-        # the bf16x3 split table is 1.5x the f32 attr table in HBM and
-        # only the (measured-loss, disabled) ATTR_SPLIT3 kernel path
-        # reads it — build it only when that path is on; otherwise a
-        # zero-row placeholder keeps the pytree structure stable
-        cluster_attr3=arr(
-            _attr_split3(host["cluster_attr"]) if _attr_split3_enabled()
-            else np.zeros((0, 3 * np.asarray(host["cluster_attr"]).shape[1]),
-                          np.float32),
-            jnp.bfloat16,
-        ),
         aabb_min=arr(host["aabb_min"], jnp.float32),
         aabb_max=arr(host["aabb_max"], jnp.float32),
     )

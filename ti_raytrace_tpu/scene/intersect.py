@@ -1,7 +1,7 @@
 """Ray-primitive intersection, vectorized over wavefronts.
 
 Replaces the reference's per-lane routines (Scene.py:530-669) with
-whole-batch math.  Key structural change for TPU: traversal only computes
+whole-batch math.  Key structural change: traversal only computes
 the hit distance `t` per candidate; the full hit record (position, normals,
 uv, material) is reconstructed *once per bounce* from the winning
 primitive id (`hit_attributes`), instead of per BVH leaf visit like the

@@ -2,8 +2,9 @@
 
 The render loop never does per-lane gathers: instead, all shading data of
 a primitive lives in one column of a planar (A, P) table, and the winning
-primitive's column is extracted with a one-hot matmul on the MXU
-(ops/dense_trace.trace_shaded).  Same trick for light sampling.
+primitive's column is extracted with a one-hot matmul
+(ops/dense_trace.trace_shaded) or gathered once per trace
+(ops/cluster_trace).  The one-hot trick also serves light sampling.
 
 Column layouts (float32):
 

@@ -3,7 +3,7 @@
 The wavefront twin of scene/sample.py: instead of gathering light data
 per lane, the chosen light's 32-float column is extracted from
 scene.light_attr (32, L) with a one-hot matmul — for typical light counts
-this is a sliver of MXU time and zero gather traffic.
+a small product and zero gather traffic.
 """
 
 import jax
@@ -21,10 +21,10 @@ def _pick_light(scene, u_pick):
     onehot = (
         jnp.arange(L, dtype=jnp.int32)[:, None] == idx[None, :]
     ).astype(jnp.float32)
-    # HIGHEST: the MXU's default bf16 passes round the extracted column —
-    # prim ids come back off-by-rounding and light positions shift ~0.4%,
-    # which (measured) displaced veach's spot-lamp shadow origins into the
-    # shade and killed its NEE on TPU while CPU runs were exact
+    # HIGHEST: a reduced-precision (bf16/TF32) product rounds the
+    # extracted column — prim ids come back off-by-rounding and light
+    # positions shift ~0.4%, which displaced veach's spot-lamp shadow
+    # origins into the shade and killed its NEE
     col = jnp.dot(scene.light_attr, onehot, preferred_element_type=jnp.float32,
                   precision=jax.lax.Precision.HIGHEST)
     return col, idx

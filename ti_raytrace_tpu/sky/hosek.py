@@ -156,7 +156,7 @@ def sky_radiance_hero(sky_configs, sky_radiances, theta, gamma, lam):
     (4, N) spectral radiance.
 
     sky_configs: (11, 9) jnp; sky_radiances: (11,) jnp.  The per-band F
-    values (11, N) are computed densely — 11 bands of pure VPU math —
+    values (11, N) are computed densely — 11 bands of elementwise math —
     then each wavelength row blends its two neighbors with one-hot masks.
     """
     cg = jnp.cos(gamma)[None, :]                       # (1, N)

@@ -9,8 +9,8 @@ integrate — back to that color.  Optimization is damped Gauss-Newton with
 an analytic Jacobian, residual in CIELAB, continuation along the
 brightness lattice (warm-starting each z-slice from its neighbor).
 
-Pure numpy in float64 on the host (TPU f64 is emulated; this is a
-build-time artifact, not render-path code).  ~1 minute for the 64^3
+Pure numpy in float64 on the host (a build-time artifact, not
+render-path code).  ~1 minute for the 64^3
 table; cached by spectral/rgb2spec.load_table.
 
 Internally the quadratic uses a normalized wavelength for conditioning;

@@ -6,7 +6,7 @@ quadratic in wavelength; a 3x64^3 coefficient table maps linear RGB to
 reordering, non-uniform z lattice with binary-search interval lookup,
 trilinear interpolation, sigmoid eval (Rgb2Spec.py:48-138).
 
-TPU split:
+Host/device split:
   * `fetch` runs on the HOST (vectorized numpy): materials are few, so
     the scene builder bakes per-material coefficients into the packed
     attribute tables (scene/packs.py) — the render loop never touches

@@ -4,7 +4,7 @@ Covers reference spectrum/Spectrum.py (CSV table + lerp sample + scale)
 and the hero-wavelength machinery of spectrum/HeroSample.py: 4 correlated
 wavelengths lambda_i = lambda0 + i*100nm, lambda0 in [360, 460).
 
-TPU design: instead of per-lane table gathers, every SPD an integrator
+Design: instead of per-lane table gathers, every SPD an integrator
 needs is pre-evaluated on the host into a *hero matrix* H of shape
 (4, NB): column b holds the SPD at the 4 hero wavelengths of
 lambda0-bin b.  At render time a lane's 4-vector is one one-hot matmul
@@ -104,7 +104,7 @@ def hero_onehot(u):
 
 
 def hero_select(matrix, onehot):
-    """(R, NB) @ (NB, N) -> (R, N) per-lane hero values on the MXU."""
+    """(R, NB) @ (NB, N) -> (R, N) per-lane hero values (one-hot matmul)."""
     # HIGHEST: exact table values through the one-hot (bf16 would round)
     return jnp.dot(
         jnp.asarray(matrix, jnp.float32), onehot,

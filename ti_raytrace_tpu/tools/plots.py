@@ -125,7 +125,7 @@ def colour_check() -> float:
 
 
 def main(argv=None):
-    outdir = (argv or sys.argv[1:] or ["/tmp/tiray_plots"])[0]
+    outdir = (argv or sys.argv[1:] or ["plots"])[0]
     os.makedirs(outdir, exist_ok=True)
     draw_spd(os.path.join(outdir, "spd.png"))
     draw_cmf(os.path.join(outdir, "cmf.png"))

@@ -14,7 +14,7 @@ render of ours, so the three-way comparison attributes any deficit to
 circular reasoning.  Direct light only — pick patches where one bounce
 dominates (the oracle is a lower bound; indirect adds on top).
 
-Run (host, no TPU needed for the oracle itself):
+Run (host, no accelerator needed for the oracle itself):
   python -m ti_raytrace_tpu.tools.spectral_direct_oracle [--image OURS.png]
 """
 

@@ -1,6 +1,6 @@
 """Region-wise comparison of the spectral_box render vs the reference
-golden (image/spectral-cornellbox.png) — the instrument for VERDICT r3
-task 'spectral box parity' (overall brightness ratio 0.640).
+golden (image/spectral-cornellbox.png) — the instrument for spectral
+box parity.
 
 The lamp region isolates the EMISSION path (D65 x rgb2spec tint of the
 light color, reference PT_Spec.emission_to_rad:110-116); the white/red/
@@ -8,7 +8,7 @@ green wall regions isolate the measured-SPD REFLECTANCE path
 (get_spec_power:120-135).  A uniform deficit points at emission or the
 white-point normalization; a per-wall deficit points at the SPD tables.
 
-Run (TPU): python -m ti_raytrace_tpu.tools.spectral_regions [--frames N]
+Run: python -m ti_raytrace_tpu.tools.spectral_regions [--frames N]
 """
 
 import argparse
@@ -45,17 +45,16 @@ def region_stats(img, size):
 
 
 def main(argv=None):
-    from ti_raytrace_tpu.core.tpu_env import fix_stale_platform, wait_for_device
+    from ti_raytrace_tpu.core.runtime import setup_compile_cache
 
-    fix_stale_platform()
-    wait_for_device()
+    setup_compile_cache()
 
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--frames", type=int, default=64)
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--scene", default="spectral_box")
     ap.add_argument("--ref", default="image/spectral-cornellbox.png")
-    ap.add_argument("--save", default="/tmp/spectral_box.png")
+    ap.add_argument("--save", default="spectral_box.png")
     args = ap.parse_args(argv)
 
     from ti_raytrace_tpu.io.image import film_to_image

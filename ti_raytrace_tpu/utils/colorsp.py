@@ -4,6 +4,7 @@ Re-implements the reference's color substrate (UtilsFunc.py:45-120 and the
 tone_map kernel at UtilsFunc.py:583-586) as pure vectorized functions.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -32,12 +33,12 @@ def lrgb_to_srgb(lrgb):
 def xyz_to_srgb(xyz):
     """CIE XYZ -> linear sRGB via the reference's matrix (UtilsFunc.py:42)."""
     m = jnp.asarray(C.XYZ_TO_SRGB)
-    return xyz @ m.T
+    return jnp.matmul(xyz, m.T, precision=jax.lax.Precision.HIGHEST)
 
 
 def srgb_to_xyz(rgb):
     m = jnp.asarray(C.SRGB_TO_XYZ)
-    return rgb @ m.T
+    return jnp.matmul(rgb, m.T, precision=jax.lax.Precision.HIGHEST)
 
 
 def xyz_to_Yxy(xyz):

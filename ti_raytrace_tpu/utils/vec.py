@@ -2,8 +2,8 @@
 
 Every routine broadcasts over arbitrary leading (batch) axes; 3-vectors
 live in the trailing axis.  This is the whole-wavefront replacement for the
-reference's per-lane `ti.Vector` math (UtilsFunc.py) — on TPU the batch
-axis is the hardware vector axis, so these map straight onto the VPU.
+reference's per-lane `ti.Vector` math (UtilsFunc.py): the batch axes
+vectorize, one lane per ray.
 """
 
 import jax.numpy as jnp
